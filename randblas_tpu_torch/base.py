@@ -1,0 +1,44 @@
+"""Shared enums and small helpers (counterpart of randblas_tpu/base.py).
+
+Tensors carry their own shape, so the reference's stride/ld plumbing
+collapses to plain 2-D tensors. ``Layout`` is fill-order metadata for dense
+distributions (it decides which entries receive which random values), and
+``Op``/``Side`` are the flags of the sketching entry points.
+"""
+
+from __future__ import annotations
+
+import enum
+
+
+class MajorAxis(enum.Enum):
+    """Fill-order / sparsity-structure selector."""
+    Short = "S"
+    Long = "L"
+    Undefined = "U"
+
+
+class Layout(enum.Enum):
+    ColMajor = "C"
+    RowMajor = "R"
+
+
+class Op(enum.Enum):
+    NoTrans = "N"
+    Trans = "T"
+
+
+class Side(enum.Enum):
+    Left = "L"
+    Right = "R"
+
+
+def dims_before_op(m: int, n: int, op: Op):
+    """Shape of the stored matrix X when op(X) is m-by-n."""
+    return (m, n) if op == Op.NoTrans else (n, m)
+
+
+def require(cond: bool, msg: str):
+    """Host-side validation: raise ValueError when ``cond`` is false."""
+    if not cond:
+        raise ValueError(f"randblas_tpu_torch requirement failed: {msg}")

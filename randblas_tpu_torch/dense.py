@@ -1,0 +1,212 @@
+"""Dense sketching operators: distributions, operator objects, fill engine
+(counterpart of randblas_tpu/dense.py).
+
+The invariants carried over from the reference:
+
+1. Counter addressing: any submatrix of an implicit operator is generated
+   directly from (seed, offsets), bit-identical to slicing the full matrix.
+2. ``next_state`` is a function of the distribution only, computed by
+   counter arithmetic.
+3. Fill order (MajorAxis -> natural layout) decides which entries receive
+   which stream values.
+
+Operators are lazy: ``materialize``/``submat`` fill on request, on the
+device asked for, and the fused sketch kernel never stores the operator.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import enum
+import math
+from typing import Optional
+
+import torch
+
+from .base import Layout, MajorAxis, require
+from .ops.dense_fill import fill_colmajor, fill_next_state, fill_rowmajor
+from .rng.state import RNGState
+
+
+class DenseDistName(enum.Enum):
+    """Scalar distribution families."""
+    Gaussian = "G"   # mean 0, variance 1
+    Uniform = "U"    # uniform on [-sqrt(3), sqrt(3)] (variance 1)
+    BlackBox = "B"   # user-provided tensor
+
+
+TRANSFORM = {DenseDistName.Gaussian: "boxmul",
+             DenseDistName.Uniform: "uneg11"}
+
+
+@dataclasses.dataclass(frozen=True)
+class DenseDist:
+    """A distribution over dense sketching operators."""
+    n_rows: int
+    n_cols: int
+    family: DenseDistName = DenseDistName.Gaussian
+    major_axis: MajorAxis = None  # type: ignore[assignment]
+
+    def __post_init__(self):
+        require(self.n_rows > 0 and self.n_cols > 0,
+                "DenseDist dimensions must be positive")
+        if self.major_axis is None:
+            ma = (MajorAxis.Undefined
+                  if self.family == DenseDistName.BlackBox
+                  else MajorAxis.Long)
+            object.__setattr__(self, "major_axis", ma)
+        if self.family == DenseDistName.BlackBox:
+            require(self.major_axis == MajorAxis.Undefined,
+                    "BlackBox requires MajorAxis.Undefined")
+        else:
+            require(self.major_axis != MajorAxis.Undefined,
+                    "random families require a defined MajorAxis")
+
+
+def dist_to_layout(d: DenseDist) -> Layout:
+    """Natural fill order of the distribution."""
+    require(d.major_axis != MajorAxis.Undefined,
+            "dist_to_layout needs a defined major axis")
+    is_wide = d.n_rows < d.n_cols
+    fa_long = d.major_axis == MajorAxis.Long
+    if is_wide:
+        return Layout.RowMajor if fa_long else Layout.ColMajor
+    return Layout.ColMajor if fa_long else Layout.RowMajor
+
+
+def major_axis_length(d: DenseDist) -> int:
+    require(d.major_axis != MajorAxis.Undefined,
+            "major_axis_length needs a defined major axis")
+    return (max(d.n_rows, d.n_cols) if d.major_axis == MajorAxis.Long
+            else min(d.n_rows, d.n_cols))
+
+
+def compute_next_state(dist: DenseDist, state: RNGState) -> RNGState:
+    """Advance past a full sample of ``dist`` by counter arithmetic alone."""
+    if dist.major_axis == MajorAxis.Undefined:
+        return state
+    ctr_size = state.block_width
+    major_len = major_axis_length(dist)
+    minor_len = dist.n_rows + (dist.n_cols - major_len)
+    pad = (-major_len) % ctr_size
+    return state.incr((major_len + pad) // ctr_size * minor_len)
+
+
+def fill_dense_submat(dist: DenseDist, state: RNGState, n_rows: int,
+                      n_cols: int, ro_s: int = 0, co_s: int = 0,
+                      dtype=torch.float32, device=None) -> torch.Tensor:
+    """The (ro_s:ro_s+n_rows, co_s:co_s+n_cols) block of the implicit sample
+    of ``dist`` seeded at ``state``, as a contiguous (n_rows, n_cols)
+    tensor on ``device``. Values are made in float32, cast to ``dtype``;
+    Uniform then scales by sqrt(3) in ``dtype``."""
+    require(dist.family != DenseDistName.BlackBox,
+            "fill_dense cannot be called with the BlackBox family")
+    require(0 <= ro_s and dist.n_rows >= n_rows + ro_s,
+            "row range out of bounds")
+    require(0 <= co_s and dist.n_cols >= n_cols + co_s,
+            "column range out of bounds")
+    ma_len = major_axis_length(dist)
+    transform = TRANSFORM[dist.family]
+    if dist_to_layout(dist) == Layout.ColMajor:
+        # generate the transpose in row-major order and flip it
+        vals = fill_colmajor(ma_len, n_cols, n_rows, ro_s + co_s * ma_len,
+                             state, transform, device)
+    else:
+        vals = fill_rowmajor(ma_len, n_rows, n_cols, ro_s * ma_len + co_s,
+                             state, transform, device)
+    vals = vals.to(dtype).contiguous()
+    if dist.family == DenseDistName.Uniform:
+        vals = vals * torch.tensor(math.sqrt(3.0), dtype=dtype)
+    return vals
+
+
+def fill_dense(dist: DenseDist, state: RNGState, dtype=torch.float32,
+               device=None):
+    """Full sample of ``dist``: returns (tensor, next_state), where
+    next_state reflects the counters actually consumed."""
+    arr = fill_dense_submat(dist, state, dist.n_rows, dist.n_cols, 0, 0,
+                            dtype, device)
+    ma_len = major_axis_length(dist)
+    if dist_to_layout(dist) == Layout.ColMajor:
+        n_rows_, n_cols_ = dist.n_cols, dist.n_rows
+    else:
+        n_rows_, n_cols_ = dist.n_rows, dist.n_cols
+    return arr, fill_next_state(ma_len, n_rows_, n_cols_, 0, state)
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class DenseSkOp:
+    """A sample from a DenseDist, lazy unless ``materialized`` is given.
+
+    ``seed_state`` may be an int key. ``next_state`` defaults to the state
+    after a full sample. ``materialize()`` returns a fresh fill each call;
+    build ``DenseSkOp(dist, state, materialized=S.materialize())`` to hold
+    one (such an operator no longer takes the fused route).
+    """
+    dist: DenseDist
+    seed_state: RNGState
+    _: dataclasses.KW_ONLY
+    next_state: Optional[RNGState] = None
+    materialized: Optional[torch.Tensor] = None
+    dtype: torch.dtype = torch.float32
+
+    def __post_init__(self):
+        if isinstance(self.seed_state, int):
+            object.__setattr__(self, "seed_state",
+                               RNGState.from_key(self.seed_state))
+        if self.next_state is None:
+            object.__setattr__(self, "next_state",
+                               compute_next_state(self.dist, self.seed_state))
+        if self.dist.family == DenseDistName.BlackBox:
+            require(self.materialized is not None,
+                    "BlackBox operators need an explicit tensor")
+        if self.materialized is not None:
+            mat = torch.as_tensor(self.materialized).to(self.dtype)
+            require(tuple(mat.shape) == (self.dist.n_rows, self.dist.n_cols),
+                    "materialized tensor must match the distribution shape")
+            object.__setattr__(self, "materialized", mat)
+
+    @property
+    def n_rows(self) -> int:
+        return self.dist.n_rows
+
+    @property
+    def n_cols(self) -> int:
+        return self.dist.n_cols
+
+    @property
+    def shape(self):
+        return (self.dist.n_rows, self.dist.n_cols)
+
+    def materialize(self, device=None) -> torch.Tensor:
+        """Dense (n_rows, n_cols) tensor of this operator."""
+        return self.submat(self.n_rows, self.n_cols, 0, 0, device=device)
+
+    def submat(self, n_rows: int, n_cols: int, ro_s: int, co_s: int,
+               dtype=None, device=None) -> torch.Tensor:
+        """Just a block, with the same values as slicing materialize().
+
+        ``dtype`` overrides the operator's dtype. The result always equals
+        the block filled at the operator's dtype and cast: Uniform scales by
+        sqrt(3) in the fill dtype, so a narrower request fills at the
+        operator's dtype first."""
+        dtype = self.dtype if dtype is None else dtype
+        require(0 <= ro_s and self.n_rows >= n_rows + ro_s,
+                "row range out of bounds")
+        require(0 <= co_s and self.n_cols >= n_cols + co_s,
+                "column range out of bounds")
+        if self.materialized is not None:
+            blk = self.materialized[ro_s:ro_s + n_rows, co_s:co_s + n_cols]
+            return blk.to(dtype=dtype, device=device)
+        fill_dtype = dtype
+        if dtype != self.dtype and self.dist.family == DenseDistName.Uniform:
+            fill_dtype = self.dtype
+        vals = fill_dense_submat(self.dist, self.seed_state, n_rows, n_cols,
+                                 ro_s, co_s, fill_dtype, device)
+        return vals.to(dtype)
+
+    def __repr__(self):
+        return (f"DenseSkOp({self.dist.n_rows}x{self.dist.n_cols}, "
+                f"{self.dist.family.name}, major={self.dist.major_axis.name},"
+                f" dtype={self.dtype}, "
+                f"{'materialized' if self.materialized is not None else 'lazy'})")

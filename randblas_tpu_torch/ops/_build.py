@@ -1,0 +1,118 @@
+"""Build the CUDA kernels with nvcc and bind them with ctypes.
+
+The kernels' source is ``csrc/fused_sketch.cu``, a file with a plain C
+interface (no PyTorch headers), so nvcc builds it in seconds:
+
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
+         -Xcompiler -fPIC -o _build/libfused_sketch.so csrc/fused_sketch.cu
+
+The library goes to ``randblas_tpu_torch/_build/`` (listed in .gitignore),
+keyed on a hash of the source and the flags, and is built at first use: a
+process that never launches a kernel never needs nvcc. nvcc is looked up as
+``$CUDA_HOME/bin/nvcc``, then on ``PATH``, then under ``/usr/local/cuda``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from pathlib import Path
+
+_PKG = Path(__file__).resolve().parent.parent
+SOURCE = _PKG / "csrc" / "fused_sketch.cu"
+BUILD_DIR = _PKG / "_build"
+LIBRARY = BUILD_DIR / "libfused_sketch.so"
+_STAMP = BUILD_DIR / "libfused_sketch.sha256"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+# nvcc's output of this process's build (ptxas registers, shared memory and
+# spills per kernel), and its wall time in seconds; None when the library
+# was already built
+build_log = None
+build_seconds = None
+
+_lib = None
+_lock = threading.Lock()
+
+
+def _nvcc() -> str:
+    cuda_home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
+    candidates = [Path(cuda_home) / "bin" / "nvcc"] if cuda_home else []
+    on_path = shutil.which("nvcc")
+    if on_path:
+        candidates.append(Path(on_path))
+    candidates.append(Path("/usr/local/cuda/bin/nvcc"))
+    for c in candidates:
+        if c.is_file():
+            return str(c)
+    raise RuntimeError(
+        "nvcc not found: the CUDA kernels of randblas_tpu_torch are built "
+        "from csrc/ with the CUDA toolkit for sm_90a (set CUDA_HOME)")
+
+
+def _digest() -> str:
+    h = hashlib.sha256(SOURCE.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return h.hexdigest()
+
+
+def _ensure_built() -> Path:
+    global build_log, build_seconds
+    digest = _digest()
+    if LIBRARY.is_file() and _STAMP.is_file() \
+            and _STAMP.read_text().strip() == digest:
+        return LIBRARY
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = BUILD_DIR / f"libfused_sketch.{os.getpid()}.tmp.so"
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    build_seconds = time.perf_counter() - t0
+    build_log = proc.stdout + proc.stderr
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(
+            f"nvcc failed (exit {proc.returncode}): {' '.join(cmd)}\n"
+            f"{build_log}")
+    os.replace(tmp, LIBRARY)
+    _STAMP.write_text(digest + "\n")
+    return LIBRARY
+
+
+def _bind(lib):
+    c_void_p, c_int, c_int64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+    words = ctypes.POINTER(ctypes.c_uint32)
+    lib.rbt_fused_sketch.argtypes = [
+        c_void_p, c_int, c_void_p, c_int64, c_int64, c_int64,
+        ctypes.c_uint64, words, c_int, c_int, ctypes.c_float, c_void_p]
+    lib.rbt_fused_sketch.restype = c_int
+    lib.rbt_fill_block.argtypes = [
+        c_void_p, c_int64, c_int64, c_int, ctypes.c_uint64, words, c_int,
+        c_int, c_void_p]
+    lib.rbt_fill_block.restype = c_int
+    lib.rbt_error_string.argtypes = [c_int]
+    lib.rbt_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def load():
+    """The bound kernel library, built from the package's source if the
+    build directory holds none for this source."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            _lib = _bind(ctypes.CDLL(str(_ensure_built())))
+    return _lib
+
+
+def check(code: int, what: str) -> None:
+    """Raise if a launcher returned a CUDA error code."""
+    if code != 0:
+        msg = _lib.rbt_error_string(code).decode() if _lib else ""
+        raise RuntimeError(f"{what}: CUDA error {code} ({msg})")

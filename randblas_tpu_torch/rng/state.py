@@ -1,0 +1,128 @@
+"""RNGState: the serializable snapshot of a counter-based RNG stream
+(counterpart of randblas_tpu/rng/state.py).
+
+A value of an operator is a function of (seed, position) alone, bit-identical
+to Random123, so the state is just the counter and key words plus the
+generator's name. The words are Python ints: advancing a state or handing
+its seed to a kernel never touches a device. ``torch.Generator`` is not
+used for operators.
+
+The counter is read as a little-endian base-2**32 integer, matching the
+Random123 ``ctr.incr`` carry semantics.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Tuple
+
+# generator name -> (counter words, key words)
+_GENERATORS = {
+    "philox4x32": (4, 2),
+    "philox2x32": (2, 1),
+    "threefry4x32": (4, 4),
+    "threefry2x32": (2, 2),
+}
+
+# 64-bit-counter generators of the JAX package, not ported yet
+_GENERATORS_X64 = ("philox4x64", "philox2x64", "threefry4x64",
+                   "threefry2x64")
+
+DEFAULT_RNG = "philox4x32"
+
+
+def generator_info(name: str):
+    """(counter words, key words) of a 32-bit generator."""
+    if name in _GENERATORS_X64:
+        raise NotImplementedError(
+            f"{name}: the 64-bit-counter generators are not ported to "
+            "randblas_tpu_torch yet (ROADMAP.md Queue 1 item 9)")
+    try:
+        return _GENERATORS[name]
+    except KeyError:
+        raise ValueError(
+            f"unknown counter-based RNG {name!r}; supported: "
+            f"{sorted(_GENERATORS)}") from None
+
+
+def _words(values, n: int, what: str) -> Tuple[int, ...]:
+    words = tuple(int(w) for w in values)
+    if len(words) != n:
+        raise ValueError(f"{what} must have {n} words")
+    if any(not 0 <= w <= 0xFFFFFFFF for w in words):
+        raise ValueError(f"{what} words must lie in [0, 2**32)")
+    return words
+
+
+def _add_words(words: Tuple[int, ...], amount: int) -> Tuple[int, ...]:
+    """Little-endian multiword add, wrapping at the top word."""
+    amount = int(amount)
+    if not 0 <= amount < 2 ** 64:
+        raise ValueError("counter increments must lie in [0, 2**64)")
+    n = len(words)
+    total = sum(w << (32 * i) for i, w in enumerate(words)) + amount
+    total &= (1 << (32 * n)) - 1
+    return tuple((total >> (32 * i)) & 0xFFFFFFFF for i in range(n))
+
+
+@dataclasses.dataclass(frozen=True)
+class RNGState:
+    """Counter + key snapshot of a counter-based RNG (default Philox4x32)."""
+
+    counter: Tuple[int, ...]
+    key: Tuple[int, ...]
+    rng: str = DEFAULT_RNG
+
+    def __post_init__(self):
+        len_c, len_k = generator_info(self.rng)
+        object.__setattr__(self, "counter",
+                           _words(self.counter, len_c, "counter"))
+        object.__setattr__(self, "key", _words(self.key, len_k, "key"))
+
+    # -- constructors ------------------------------------------------------
+
+    @staticmethod
+    def from_key(key_scalar: int = 0, rng: str = DEFAULT_RNG) -> "RNGState":
+        """Counter all-zero; key word 0 = key_scalar, the rest zero."""
+        len_c, len_k = generator_info(rng)
+        return RNGState((0,) * len_c,
+                        (int(key_scalar) & 0xFFFFFFFF,) + (0,) * (len_k - 1),
+                        rng)
+
+    @staticmethod
+    def from_arrays(counter, key, rng: str = DEFAULT_RNG) -> "RNGState":
+        """From sequences of words (lists, numpy arrays, tensors)."""
+        return RNGState(tuple(int(w) for w in counter),
+                        tuple(int(w) for w in key), rng)
+
+    # -- info --------------------------------------------------------------
+
+    @property
+    def block_width(self) -> int:
+        """Values generated per counter block (the counter's word count)."""
+        return len(self.counter)
+
+    # -- counter arithmetic ------------------------------------------------
+
+    def incr(self, amount: int = 1) -> "RNGState":
+        """Advance the counter by ``amount`` (< 2**64) with carries."""
+        return RNGState(_add_words(self.counter, amount), self.key, self.rng)
+
+    def incr_key(self, amount: int = 1) -> "RNGState":
+        """Advance the key words (same little-endian semantics)."""
+        return RNGState(self.counter, _add_words(self.key, amount), self.rng)
+
+    # -- checkpoint / resume -----------------------------------------------
+
+    def to_dict(self) -> dict:
+        """Plain-python snapshot, the same format as the JAX package's."""
+        return {"rng": self.rng, "counter": list(self.counter),
+                "key": list(self.key)}
+
+    @staticmethod
+    def from_dict(d: dict) -> "RNGState":
+        return RNGState.from_arrays(d["counter"], d["key"], d["rng"])
+
+    def __repr__(self) -> str:
+        return (f"RNGState<{self.rng}>(counter={list(self.counter)}, "
+                f"key={list(self.key)})")

@@ -1,0 +1,239 @@
+"""The slice as a whole: the port's sketch_general against the JAX
+package's, on the CPU, with the same numpy-seeded inputs.
+
+Tolerances (normalised by max |want|):
+- staged route, float32: 1e-4. Both fill the block and multiply in float32;
+  the sums run in another order and Gaussian values differ by ulps
+  (cross-platform log/sin/cos).
+- fused route: 1e-4. Both round the operands to bf16 (JAX runs its Pallas
+  kernel in interpret mode, as tests/test_fused_coverage.py does); the
+  readings are about 1.8e-7, while the float32 staged product is 2e-3 to
+  2.7e-3 away, so the limit tells the two apart.
+- bf16 data on the staged route: 2e-2 (bf16 products and outputs).
+"""
+
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import randblas_tpu as rb
+from randblas_tpu import skge as jskge
+from randblas_tpu.ops import fused_sketch as jfs
+import randblas_tpu_torch as rt
+from randblas_tpu_torch import skge as tskge
+
+_REPO = Path(__file__).resolve().parent.parent
+
+
+def _ops(shape, family="Gaussian", key=3, major="Long", rng="philox4x32"):
+    jS = rb.DenseSkOp(rb.DenseDist(*shape, rb.DenseDistName[family],
+                                   rb.MajorAxis[major]),
+                      rb.RNGState.from_key(key, rng))
+    tS = rt.DenseSkOp(rt.DenseDist(*shape, rt.DenseDistName[family],
+                                   rt.MajorAxis[major]),
+                      rt.RNGState.from_key(key, rng))
+    return jS, tS
+
+
+def _data(shape, seed):
+    return np.random.default_rng(seed).standard_normal(shape).astype(
+        np.float32)
+
+
+def _close(got, want, atol):
+    got = np.asarray(got.float() if isinstance(got, torch.Tensor) else got,
+                     dtype=np.float32)
+    want = np.asarray(want, dtype=np.float32)
+    assert got.shape == want.shape
+    scale = np.abs(want).max()
+    np.testing.assert_allclose(got / scale, want / scale, rtol=0, atol=atol)
+
+
+@pytest.fixture
+def jax_fused_interpret(monkeypatch):
+    """Force the JAX package's fused dispatch, its Pallas kernel in
+    interpret mode (as tests/test_fused_coverage.py does)."""
+    monkeypatch.setattr(jskge, "use_fused", True)
+    orig = jfs.fused_sketch
+
+    def interp(*args, **kwargs):
+        kwargs["interpret"] = True
+        return orig(*args, **kwargs)
+
+    monkeypatch.setattr(jfs, "fused_sketch", interp)
+
+
+# (operator shape, family, major, A shape, kwargs of sketch_general)
+STAGED_CASES = [
+    ((32, 1024), "Gaussian", "Long", (1024, 64), {}),            # main path
+    ((32, 1000), "Uniform", "Long", (990, 50),
+     dict(d=20, ro_s=5, co_s=7, alpha=0.5)),
+    ((1000, 24), "Gaussian", "Long", (24, 40), {}),              # ColMajor
+    ((40, 300), "Uniform", "Short", (300, 16), {}),              # ColMajor
+    ((300, 40), "Gaussian", "Long", (300, 20), dict(op_s="T")),  # left-Trans
+    ((32, 512), "Gaussian", "Long", (40, 512), dict(op_a="T")),
+    ((32, 512), "Gaussian", "Long", (50, 32), dict(side="right")),
+    ((600, 30), "Uniform", "Long", (20, 500),
+     dict(side="right", d=25, ro_s=7, co_s=3)),
+    ((32, 512), "Gaussian", "Long", (24, 512),
+     dict(side="right", op_s="T", alpha=-2.0)),
+]
+
+
+@pytest.mark.parametrize("shape,family,major,a_shape,kw", STAGED_CASES)
+def test_staged_route_matches_jax(shape, family, major, a_shape, kw):
+    jS, tS = _ops(shape, family, major=major)
+    A = _data(a_shape, seed=sum(a_shape))
+    tskge.route_counts.clear()
+    want = rb.sketch_general(jS, jnp.asarray(A), **kw)
+    got = rt.sketch_general(tS, torch.from_numpy(A), **kw)
+    assert got.dtype == torch.float32
+    _close(got, want, atol=1e-4)
+    side = kw.get("side", "left")
+    assert tskge.route_counts == {f"{side}_staged": 1}
+
+
+@pytest.mark.parametrize("dtype,jdtype,atol", [
+    (torch.float64, jnp.float64, 1e-12),
+    (torch.bfloat16, jnp.bfloat16, 2e-2)])
+def test_staged_route_other_dtypes(dtype, jdtype, atol):
+    jS, tS = _ops((16, 400), "Uniform", key=8)
+    A = _data((400, 24), seed=8)
+    want = rb.sketch_general(jS, jnp.asarray(A, dtype=jdtype), alpha=0.25)
+    got = rt.sketch_general(tS, torch.from_numpy(A).to(dtype), alpha=0.25)
+    assert got.dtype == dtype
+    _close(got, np.asarray(want.astype(jnp.float32)), atol=atol)
+
+
+# (operator shape, family, rng, A shape, kwargs)
+FUSED_CASES = [
+    ((16, 2048), "Gaussian", "philox4x32", (2048, 128), {}),      # main path
+    ((24, 1100), "Gaussian", "philox4x32", (1000, 60),
+     dict(d=13, ro_s=4, co_s=3, alpha=0.5)),
+    ((8, 600), "Uniform", "threefry4x32", (512, 32), dict(co_s=8)),
+]
+
+
+@pytest.mark.parametrize("shape,family,rng,a_shape,kw", FUSED_CASES)
+def test_forced_fused_route_matches_jax(jax_fused_interpret, shape, family,
+                                        rng, a_shape, kw):
+    jS, tS = _ops(shape, family, key=5, rng=rng)
+    A = _data(a_shape, seed=a_shape[1])
+    want = rb.sketch_general(jS, jnp.asarray(A), **kw)
+    tskge.route_counts.clear()
+    with rt.flags(use_fused=True):
+        got = rt.sketch_general(tS, torch.from_numpy(A), **kw)
+    assert tskge.route_counts == {"left_fused": 1}
+    _close(got, want, atol=1e-4)
+    # and the float32 staged product, to bf16 accuracy
+    staged = rt.sketch_general(tS, torch.from_numpy(A), **kw)
+    _close(got, staged.numpy(), atol=2e-2)
+
+
+def test_forced_fused_raises_where_the_kernel_does_not_apply():
+    _, tS = _ops((300, 40))     # ColMajor-natural: the JAX K2 route
+    with rt.flags(use_fused=True):
+        with pytest.raises(ValueError, match="forced"):
+            rt.sketch_general(tS, torch.ones(40, 8))
+    held = rt.DenseSkOp(tS.dist, tS.seed_state,
+                        materialized=tS.materialize())
+    _, wide = _ops((8, 64))
+    held_wide = rt.DenseSkOp(wide.dist, wide.seed_state,
+                             materialized=wide.materialize())
+    tskge.route_counts.clear()
+    with rt.flags(use_fused=False):
+        rt.sketch_general(wide, torch.ones(64, 4))
+    rt.sketch_general(held_wide, torch.ones(64, 4))
+    rt.sketch_general(held, torch.ones(40, 4))
+    assert tskge.route_counts == {"left_staged": 3}
+
+
+def test_kernel_fill_staged_route_matches_jax_pallas_fill(monkeypatch):
+    monkeypatch.setattr(jskge, "use_pallas_fill", True)  # interpret off-TPU
+    jS, tS = _ops((24, 700), "Gaussian", key=12)
+    A = _data((650, 30), seed=12)
+    want = rb.sketch_general(jS, jnp.asarray(A), d=20, ro_s=2, co_s=41)
+    with rt.flags(use_kernel_fill=True):
+        got = rt.sketch_general(tS, torch.from_numpy(A), d=20, ro_s=2,
+                                co_s=41)
+    _close(got, want, atol=1e-4)
+
+
+@pytest.mark.parametrize("side,a_shape,out_shape",
+                         [("left", (256, 12), (16, 12)),
+                          ("right", (12, 16), (12, 256))])
+def test_out_and_beta_match_jax(side, a_shape, out_shape):
+    jS, tS = _ops((16, 256), "Uniform", key=2)
+    A = _data(a_shape, seed=1)
+    out = _data(out_shape, seed=2)
+    want = rb.sketch_general(jS, jnp.asarray(A), side=side, alpha=2.0,
+                             beta=0.5, out=jnp.asarray(out))
+    got = rt.sketch_general(tS, torch.from_numpy(A), side=side, alpha=2.0,
+                            beta=0.5, out=torch.from_numpy(out))
+    _close(got, want, atol=1e-5)
+
+
+def test_beta_zero_overwrites_nan_out():
+    _, tS = _ops((16, 256), key=2)
+    A = torch.from_numpy(_data((256, 12), seed=1))
+    bad = torch.full((16, 12), float("nan"))
+    plain = rt.sketch_general(tS, A)
+    got = rt.sketch_general(tS, A, beta=0.0, out=bad)
+    assert torch.equal(got, plain)
+    got_t = rt.sketch_general(tS, A, beta=torch.tensor(0.0), out=bad)
+    assert torch.equal(got_t, plain)
+    with pytest.raises(ValueError, match="beta"):
+        rt.sketch_general(tS, A, beta=1.0)
+    with pytest.raises(ValueError, match="out has shape"):
+        rt.sketch_general(tS, A, beta=1.0, out=torch.zeros(3, 3))
+
+
+def test_convert_carries_operators_across():
+    jS, _ = _ops((20, 300), "Uniform", key=77)
+    jS = rb.DenseSkOp(jS.dist, jS.seed_state.incr(2 ** 33 + 5))
+    d = jS.seed_state.to_dict()
+    tS = rt.skop_from_jax(20, 300, jS.dist.family.name,
+                          jS.dist.major_axis.name, d)
+    np.testing.assert_array_equal(tS.materialize().numpy(),
+                                  np.asarray(jS.materialize()))
+    assert rt.state_from_jax(d).to_dict() == d
+    assert rt.dist_from_jax(20, 300, "U", "L") == tS.dist
+    assert tS.next_state.to_dict() == jS.next_state.to_dict()
+
+
+def test_other_operators_are_not_ported_yet():
+    sp = rb.SparseSkOp(rb.SparseDist(8, 64, vec_nnz=2),
+                       rb.RNGState.from_key(0))
+    with pytest.raises(NotImplementedError, match="item 6"):
+        rt.sketch_general(sp, torch.ones(64, 3))
+
+
+def test_sketch_convenience_and_flags_restore():
+    _, tS = _ops((8, 128))
+    A = torch.from_numpy(_data((128, 5), seed=3))
+    assert torch.equal(rt.sketch(tS, A), rt.sketch_general(tS, A))
+    with pytest.raises(RuntimeError):
+        with rt.flags(use_fused=True, use_kernel_fill=True):
+            assert rt.get_flag("use_fused") is True
+            raise RuntimeError("body fails")
+    assert rt.get_flag("use_fused") == "auto"
+    assert rt.get_flag("use_kernel_fill") is False
+    with pytest.raises(ValueError, match="unknown"):
+        rt.get_flag("use_pallas_fill")
+
+
+def test_import_leaves_jax_out():
+    code = ("import sys, randblas_tpu_torch, randblas_tpu_torch.ops.fused_sketch, "
+            "randblas_tpu_torch.ops._build; "
+            "assert 'jax' not in sys.modules, 'jax imported'; print('ok')")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    res = subprocess.run([sys.executable, "-c", code], cwd=_REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip() == "ok"
