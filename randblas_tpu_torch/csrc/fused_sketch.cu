@@ -9,17 +9,33 @@
 // into shared memory and fed to bf16 mma.sync with float32 accumulation; no
 // operator element is ever written to global memory.
 //
+// K2 fused_sketch_T_kernel replaces randblas_tpu/ops/fused_sketch.py:366
+// ::_kernel_T (reached through _fused_call_T / fused_sketch_colmajor): the
+// same product for a ColMajor-natural operator, whose element (i, c) is lane
+// i % 4 at counter seed + c * ctr_stride + i / 4 (ctr_stride from the true
+// parent height). It is K1 with another panel generator: one counter block
+// yields four consecutive ROWS of one operator column, stored into the
+// row-major shared panel as four 2-byte stores; a warp covers 32 adjacent
+// columns of one row quad, so each store instruction writes 64 contiguous
+// bytes of one panel row and meets no bank conflict. The mma fragments, the
+// data tile and the epilogue are K1's. An unaligned row offset arrives as
+// `shift` = ro % 4: the tile rows count from the previous counter boundary
+// and the epilogue stores row g at output row g - shift (the TPU kernel
+// generated extra rows and sliced them off outside). K2 carries the
+// ColMajor-natural left sketch, the left-Trans sketch onto a
+// ColMajor-natural transposed operator, and the backward pass of K1.
+//
 // K3 fill_block_kernel replaces randblas_tpu/ops/fused_sketch.py::_kernel_fill
 // (reached through _fill_call / pallas_fill_block): generation only, a
 // (rows, cols) natural-orientation block of S written in natural row order.
 //
-// Both share one device generator, gen4: (seed, counter offset) -> four
+// All share one device generator, gen4: (seed, counter offset) -> four
 // float32 values, the same arithmetic as the plain PyTorch versions in
 // ops/fused_sketch.py (every multiply and add is rounded on its own, with
 // __fmul_rn / __fadd_rn, so nothing is contracted into an FMA; logf, sqrtf,
 // sinf and cosf are the accurate versions: build without --use_fast_math).
 //
-// What bounds K1 on the H100, and what this design does about it:
+// What bounds K1 and K2 on the H100, and what this design does about it:
 // - Generation, not the product. Each thread block owns one TI x TN output
 //   tile and loops over the whole contraction, so every block regenerates
 //   its TI x m operator panel: generation work is n / TN times the size of S
@@ -28,11 +44,15 @@
 //   that this simple kernel does not overlap with the tensor cores beyond
 //   what two resident blocks per SM give. Removing the regeneration (a wider
 //   TN, or generating each panel once and sharing it across a cluster) is
-//   later work.
+//   later work. K2 does the same generation work per panel as K1 (TI x TK / 4
+//   counter blocks per step), yet measured 12-22% slower than K1 at equal
+//   flops on an H100 80GB HBM3 at 700 W (chip_smoke.py; PERF.md), with
+//   more spills under the same 128-register cap.
 // - The product runs on mma.sync m16n8k16 (bf16 in, f32 accumulate), not on
 //   wgmma/TMA; operands come from padded shared memory without ldmatrix.
 // - A is streamed once per output row tile (d / TI times); A's bytes are
-//   not the bound.
+//   not the bound. K2's backward-pass shape (65536 output rows) rides 512
+//   row tiles on grid.y.
 // Sums are deterministic: no atomics, a fixed k order inside each block.
 
 #include <cstdint>
@@ -212,7 +232,7 @@ __device__ __forceinline__ void gen4(const Seed& seed, uint64_t off,
   }
 }
 
-// ---------------------------------------------------------------- K1 ----
+// ----------------------------------------------------------- K1, K2 ----
 
 constexpr int TI = 128;      // operator rows (output rows) per block
 constexpr int TN = 128;      // output columns per block
@@ -240,11 +260,15 @@ __device__ __forceinline__ void mma_bf16(float c[4], const uint32_t a[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
-template <typename TA, int RNG, bool GAUSS>
-__global__ void __launch_bounds__(THREADS, 2)
-fused_sketch_kernel(const TA* __restrict__ a, float* __restrict__ out,
-                    int64_t d, int64_t m, int64_t n, uint64_t ctr_stride,
-                    Seed seed, float alpha) {
+// One TI x TN tile of B = alpha * S_blk @ A. COLMAJOR selects the panel
+// generator (K2's when true). The tile's operator rows count from `shift`
+// rows above output row 0: output row r is tile row r + shift (K1: 0).
+template <typename TA, int RNG, bool GAUSS, bool COLMAJOR>
+__device__ __forceinline__ void sketch_tile(const TA* __restrict__ a,
+                                            float* __restrict__ out,
+                                            int64_t d, int64_t m, int64_t n,
+                                            int shift, uint64_t ctr_stride,
+                                            const Seed& seed, float alpha) {
   // operator panel S[i0:i0+TI, k0:k0+TK] and data tile A[k0:k0+TK, n0:n0+TN]
   __shared__ __align__(16) __nv_bfloat16 s_op[TI][TK + PAD];
   __shared__ __align__(16) __nv_bfloat16 s_a[TK][TN + PAD];
@@ -253,7 +277,7 @@ fused_sketch_kernel(const TA* __restrict__ a, float* __restrict__ out,
   const int lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, tig = lane & 3;   // mma group / thread in group
   const int wm = warp >> 2, wn = warp & 3;   // warp's 64 x 32 output slice
-  const int64_t i0 = (int64_t)blockIdx.y * TI;
+  const int64_t i0 = (int64_t)blockIdx.y * TI;  // first tile row (shifted)
   const int64_t n0 = (int64_t)blockIdx.x * TN;
 
   float acc[4][4][4];
@@ -265,23 +289,44 @@ fused_sketch_kernel(const TA* __restrict__ a, float* __restrict__ out,
       for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.0f;
 
   for (int64_t k0 = 0; k0 < m; k0 += TK) {
-    // 1. generate the panel: TI rows x TK/4 counter blocks
+    // 1. generate the panel: TI x TK / 4 counter blocks
+    if constexpr (!COLMAJOR) {
+      // a block is four adjacent columns of one row
 #pragma unroll
-    for (int j = 0; j < TI * (TK / 4) / THREADS; ++j) {
-      const int idx = tid + j * THREADS;
-      const int i = idx / (TK / 4), b = idx % (TK / 4);
-      const int64_t gi = i0 + i, gc = k0 + 4 * b;
-      float v[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-      if (gi < d) {
-        gen4<RNG, GAUSS, true>(seed, (uint64_t)gi * ctr_stride + (uint64_t)(gc >> 2), v);
-      }
+      for (int j = 0; j < TI * (TK / 4) / THREADS; ++j) {
+        const int idx = tid + j * THREADS;
+        const int i = idx / (TK / 4), b = idx % (TK / 4);
+        const int64_t gi = i0 + i, gc = k0 + 4 * b;
+        float v[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+        if (gi < d) {
+          gen4<RNG, GAUSS, true>(seed, (uint64_t)gi * ctr_stride + (uint64_t)(gc >> 2), v);
+        }
 #pragma unroll
-      for (int l = 0; l < 4; ++l) {
-        if (gc + l >= m) v[l] = 0.0f;  // phantom columns multiply nothing
+        for (int l = 0; l < 4; ++l) {
+          if (gc + l >= m) v[l] = 0.0f;  // phantom columns multiply nothing
+        }
+        uint32_t* dst = reinterpret_cast<uint32_t*>(&s_op[i][4 * b]);
+        dst[0] = pack_bf16(to_bf16(v[0]), to_bf16(v[1]));
+        dst[1] = pack_bf16(to_bf16(v[2]), to_bf16(v[3]));
       }
-      uint32_t* dst = reinterpret_cast<uint32_t*>(&s_op[i][4 * b]);
-      dst[0] = pack_bf16(to_bf16(v[0]), to_bf16(v[1]));
-      dst[1] = pack_bf16(to_bf16(v[2]), to_bf16(v[3]));
+    } else {
+      // a block is four adjacent rows of one column; lanes walk columns
+#pragma unroll
+      for (int j = 0; j < (TI / 4) * TK / THREADS; ++j) {
+        const int idx = tid + j * THREADS;
+        const int c = idx % TK, b = idx / TK;
+        const int64_t gc = k0 + c;
+        const int64_t r0 = i0 + 4 * b - shift;  // output row of lane 0
+        float v[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+        if (gc < m && r0 + 3 >= 0 && r0 < d) {
+          gen4<RNG, GAUSS, true>(seed, (uint64_t)gc * ctr_stride + (uint64_t)((i0 >> 2) + b), v);
+        }
+#pragma unroll
+        for (int l = 0; l < 4; ++l) {
+          if (r0 + l < 0 || r0 + l >= d) v[l] = 0.0f;  // phantom rows
+          s_op[4 * b + l][c] = to_bf16(v[l]);
+        }
+      }
     }
     // 2. stage the data tile as bf16, zero past the ragged edges
 #pragma unroll
@@ -333,16 +378,36 @@ fused_sketch_kernel(const TA* __restrict__ a, float* __restrict__ out,
   for (int mt = 0; mt < 4; ++mt) {
 #pragma unroll
     for (int nt = 0; nt < 4; ++nt) {
-      const int64_t row = i0 + wm * 64 + mt * 16 + g;
+      const int64_t row = i0 - shift + wm * 64 + mt * 16 + g;
       const int64_t col = n0 + wn * 32 + nt * 8 + 2 * tig;
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int64_t r = row + (e >= 2 ? 8 : 0);
         const int64_t c = col + (e & 1);
-        if (r < d && c < n) out[r * n + c] = alpha * acc[mt][nt][e];
+        if (r >= 0 && r < d && c < n) out[r * n + c] = alpha * acc[mt][nt][e];
       }
     }
   }
+}
+
+template <typename TA, int RNG, bool GAUSS>
+__global__ void __launch_bounds__(THREADS, 2)
+fused_sketch_kernel(const TA* __restrict__ a, float* __restrict__ out,
+                    int64_t d, int64_t m, int64_t n, uint64_t ctr_stride,
+                    Seed seed, float alpha) {
+  sketch_tile<TA, RNG, GAUSS, false>(a, out, d, m, n, 0, ctr_stride, seed,
+                                     alpha);
+}
+
+// ---------------------------------------------------------------- K2 ----
+
+template <typename TA, int RNG, bool GAUSS>
+__global__ void __launch_bounds__(THREADS, 2)
+fused_sketch_T_kernel(const TA* __restrict__ a, float* __restrict__ out,
+                      int64_t d, int64_t m, int64_t n, int shift,
+                      uint64_t ctr_stride, Seed seed, float alpha) {
+  sketch_tile<TA, RNG, GAUSS, true>(a, out, d, m, n, shift, ctr_stride, seed,
+                                    alpha);
 }
 
 // ---------------------------------------------------------------- K3 ----
@@ -392,6 +457,22 @@ void launch_fused(const void* a, float* out, int64_t d, int64_t m, int64_t n,
   }
 }
 
+template <typename TA, int RNG>
+void launch_fused_T(const void* a, float* out, int64_t d, int64_t m,
+                    int64_t n, int shift, uint64_t ctr_stride, Seed seed,
+                    int gaussian, float alpha, cudaStream_t stream) {
+  const dim3 grid((unsigned)((n + TN - 1) / TN),
+                  (unsigned)((d + shift + TI - 1) / TI));
+  const TA* ap = static_cast<const TA*>(a);
+  if (gaussian) {
+    fused_sketch_T_kernel<TA, RNG, true><<<grid, THREADS, 0, stream>>>(
+        ap, out, d, m, n, shift, ctr_stride, seed, alpha);
+  } else {
+    fused_sketch_T_kernel<TA, RNG, false><<<grid, THREADS, 0, stream>>>(
+        ap, out, d, m, n, shift, ctr_stride, seed, alpha);
+  }
+}
+
 template <int RNG>
 void launch_fill(float* out, int64_t rows, int64_t cols, int shift,
                  uint64_t ctr_stride, Seed seed, int gaussian,
@@ -433,6 +514,30 @@ extern "C" int rbt_fused_sketch(const void* a, int a_bf16, float* out,
       launch_fused<float, kPhilox4x32>(a, out, d, m, n, ctr_stride, seed, gaussian, alpha, s);
     else
       launch_fused<float, kThreefry4x32>(a, out, d, m, n, ctr_stride, seed, gaussian, alpha, s);
+  }
+  return (int)cudaGetLastError();
+}
+
+extern "C" int rbt_fused_sketch_T(const void* a, int a_bf16, float* out,
+                                  int64_t d, int64_t m, int64_t n, int shift,
+                                  uint64_t ctr_stride,
+                                  const uint32_t* seed_words, int rng,
+                                  int gaussian, float alpha, void* stream) {
+  if (d <= 0 || n <= 0) return (int)cudaSuccess;
+  if (rng != kPhilox4x32 && rng != kThreefry4x32) return (int)cudaErrorInvalidValue;
+  if (shift < 0 || shift > 3) return (int)cudaErrorInvalidValue;
+  const Seed seed = make_seed(seed_words);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (a_bf16) {
+    if (rng == kPhilox4x32)
+      launch_fused_T<__nv_bfloat16, kPhilox4x32>(a, out, d, m, n, shift, ctr_stride, seed, gaussian, alpha, s);
+    else
+      launch_fused_T<__nv_bfloat16, kThreefry4x32>(a, out, d, m, n, shift, ctr_stride, seed, gaussian, alpha, s);
+  } else {
+    if (rng == kPhilox4x32)
+      launch_fused_T<float, kPhilox4x32>(a, out, d, m, n, shift, ctr_stride, seed, gaussian, alpha, s);
+    else
+      launch_fused_T<float, kThreefry4x32>(a, out, d, m, n, shift, ctr_stride, seed, gaussian, alpha, s);
   }
   return (int)cudaGetLastError();
 }

@@ -11,7 +11,8 @@ The invariants carried over from the reference:
    which stream values.
 
 Operators are lazy: ``materialize``/``submat`` fill on request, on the
-device asked for, and the fused sketch kernel never stores the operator.
+device asked for (the card unless ``device="cpu"`` is given), and the fused
+sketch kernels never store the operator.
 """
 
 from __future__ import annotations
@@ -81,6 +82,18 @@ def major_axis_length(d: DenseDist) -> int:
             else min(d.n_rows, d.n_cols))
 
 
+def default_device(device=None) -> torch.device:
+    """``device``, or the card when none is given: the fills run on the card
+    unless the caller asks for the CPU."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "randblas_tpu_torch fills on the CUDA device unless asked "
+            "otherwise, and none is available: pass device='cpu'")
+    return torch.device("cuda")
+
+
 def compute_next_state(dist: DenseDist, state: RNGState) -> RNGState:
     """Advance past a full sample of ``dist`` by counter arithmetic alone."""
     if dist.major_axis == MajorAxis.Undefined:
@@ -97,14 +110,15 @@ def fill_dense_submat(dist: DenseDist, state: RNGState, n_rows: int,
                       dtype=torch.float32, device=None) -> torch.Tensor:
     """The (ro_s:ro_s+n_rows, co_s:co_s+n_cols) block of the implicit sample
     of ``dist`` seeded at ``state``, as a contiguous (n_rows, n_cols)
-    tensor on ``device``. Values are made in float32, cast to ``dtype``;
-    Uniform then scales by sqrt(3) in ``dtype``."""
+    tensor on ``device`` (the card by default). Values are made in float32,
+    cast to ``dtype``; Uniform then scales by sqrt(3) in ``dtype``."""
     require(dist.family != DenseDistName.BlackBox,
             "fill_dense cannot be called with the BlackBox family")
     require(0 <= ro_s and dist.n_rows >= n_rows + ro_s,
             "row range out of bounds")
     require(0 <= co_s and dist.n_cols >= n_cols + co_s,
             "column range out of bounds")
+    device = default_device(device)
     ma_len = major_axis_length(dist)
     transform = TRANSFORM[dist.family]
     if dist_to_layout(dist) == Layout.ColMajor:
@@ -122,8 +136,9 @@ def fill_dense_submat(dist: DenseDist, state: RNGState, n_rows: int,
 
 def fill_dense(dist: DenseDist, state: RNGState, dtype=torch.float32,
                device=None):
-    """Full sample of ``dist``: returns (tensor, next_state), where
-    next_state reflects the counters actually consumed."""
+    """Full sample of ``dist`` on ``device`` (the card by default): returns
+    (tensor, next_state), where next_state reflects the counters actually
+    consumed."""
     arr = fill_dense_submat(dist, state, dist.n_rows, dist.n_cols, 0, 0,
                             dtype, device)
     ma_len = major_axis_length(dist)
@@ -179,12 +194,15 @@ class DenseSkOp:
         return (self.dist.n_rows, self.dist.n_cols)
 
     def materialize(self, device=None) -> torch.Tensor:
-        """Dense (n_rows, n_cols) tensor of this operator."""
+        """Dense (n_rows, n_cols) tensor of this operator, on ``device``: by
+        default the card for a lazy operator, the held tensor's device for
+        a materialized one."""
         return self.submat(self.n_rows, self.n_cols, 0, 0, device=device)
 
     def submat(self, n_rows: int, n_cols: int, ro_s: int, co_s: int,
                dtype=None, device=None) -> torch.Tensor:
-        """Just a block, with the same values as slicing materialize().
+        """Just a block, with the same values as slicing materialize(), on
+        ``device`` as for ``materialize``.
 
         ``dtype`` overrides the operator's dtype. The result always equals
         the block filled at the operator's dtype and cast: Uniform scales by

@@ -1,7 +1,7 @@
 """Build the CUDA kernels with nvcc and bind them with ctypes.
 
-The kernels' source is ``csrc/fused_sketch.cu``, a file with a plain C
-interface (no PyTorch headers), so nvcc builds it in seconds:
+The kernels' source (K1, K2 and K3) is ``csrc/fused_sketch.cu``, a file
+with a plain C interface (no PyTorch headers), so nvcc builds it in seconds:
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
          -Xcompiler -fPIC -o _build/libfused_sketch.so csrc/fused_sketch.cu
@@ -92,6 +92,10 @@ def _bind(lib):
         c_void_p, c_int, c_void_p, c_int64, c_int64, c_int64,
         ctypes.c_uint64, words, c_int, c_int, ctypes.c_float, c_void_p]
     lib.rbt_fused_sketch.restype = c_int
+    lib.rbt_fused_sketch_T.argtypes = [
+        c_void_p, c_int, c_void_p, c_int64, c_int64, c_int64, c_int,
+        ctypes.c_uint64, words, c_int, c_int, ctypes.c_float, c_void_p]
+    lib.rbt_fused_sketch_T.restype = c_int
     lib.rbt_fill_block.argtypes = [
         c_void_p, c_int64, c_int64, c_int, ctypes.c_uint64, words, c_int,
         c_int, c_void_p]

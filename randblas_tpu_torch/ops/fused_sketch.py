@@ -1,11 +1,16 @@
-"""Fused RNG-in-GEMM sketch (K1) and operator-block fill (K3): wrappers of
-the CUDA kernels in ``csrc/fused_sketch.cu`` and their plain PyTorch
-versions (counterpart of randblas_tpu/ops/fused_sketch.py).
+"""Fused RNG-in-GEMM sketches (K1, K2) and operator-block fill (K3):
+wrappers of the CUDA kernels in ``csrc/fused_sketch.cu`` and their plain
+PyTorch versions (counterpart of randblas_tpu/ops/fused_sketch.py).
 
 K1, ``fused_sketch``: B = alpha * S[ro:ro+d, co:co+m] @ A for a lazy
 RowMajor-natural Gaussian or Uniform operator, generated panel by panel
 inside the kernel; S never exists in device memory. Replaces the Pallas
 kernel ``_kernel`` (reached through ``_fused_call``).
+
+K2, ``fused_sketch_colmajor``: the same product for a ColMajor-natural
+operator (wide+Short, tall+Long, square+Long), whose counters walk down the
+columns. Replaces the Pallas kernel ``_kernel_T`` (reached through
+``_fused_call_T``).
 
 K3, ``fill_block``: a (rows, cols) block of S at any offset, generation
 only. Replaces the Pallas kernel ``_kernel_fill`` (reached through
@@ -15,10 +20,21 @@ On a CPU tensor each wrapper runs its plain version, because the tensor
 lies on the CPU; on a CUDA tensor it launches its kernel or raises. Each
 wrapper counts its kernel launches in ``.launches``.
 
-Numerics, as in the JAX package: K1 rounds both operands to bf16 and
-accumulates in float32, and its Gaussian values use the signed-view u01 and
-the polynomial sincospi; K3 uses the signed-view u01 and sin/cos. Uniform
-values are exact float arithmetic and equal the staged fill bit for bit.
+K1 and K2 are differentiable in A (one ``torch.autograd.Function``, as the
+JAX package's ``jax.custom_vjp``): the sketch is linear in A, so
+dA = alpha * block^T @ g, and block(S, r, c, ro, co)^T equals
+block(S_t, c, r, co, ro) for the transposed distribution S_t with the same
+seed, whose natural layout is the other one. So the backward pass of K1 is
+K2 and that of K2 is K1; it regenerates the operator from the seed and
+saves nothing else. A square distribution transposes to itself, so its
+backward pass fills the block and multiplies by its transpose. First-order
+reverse mode only, as in the JAX package.
+
+Numerics, as in the JAX package: K1 and K2 round both operands to bf16 and
+accumulate in float32, and their Gaussian values use the signed-view u01
+and the polynomial sincospi; K3 uses the signed-view u01 and sin/cos.
+Uniform values are exact float arithmetic and equal the staged fill bit for
+bit.
 """
 
 from __future__ import annotations
@@ -27,6 +43,7 @@ import ctypes
 import math
 
 import torch
+from torch.autograd.function import once_differentiable
 
 from ..base import Layout, Op
 from ..rng.state import RNGState
@@ -36,7 +53,7 @@ from .dense_fill import rowmajor_values
 _RNG_CODES = {"philox4x32": 0, "threefry4x32": 1}
 SUPPORTED_RNGS = tuple(_RNG_CODES)
 _CTR = 4  # counter words of the supported generators
-_MAX_GRID_Y_ROWS = 65535 * 128  # K1's row tiles ride grid.y
+_MAX_GRID_Y_ROWS = 65535 * 128  # K1's and K2's row tiles ride grid.y
 
 
 # float32 0-dim constants stay on the CPU (passed to CUDA kernels as scalars)
@@ -65,19 +82,50 @@ def _stream(t: torch.Tensor):
     return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
 
 
-# ------------------------------------------------------------------ K1 ---
+# ------------------------------------------------------------- K1, K2 ---
+
+
+def _supported(dist, n_rows, n_cols, ro_s, co_s, op_s, dtype, layout):
+    from ..dense import DenseDistName, dist_to_layout
+    return (dtype in (torch.float32, torch.bfloat16)
+            and dist.family in (DenseDistName.Gaussian, DenseDistName.Uniform)
+            and op_s == Op.NoTrans
+            and n_rows + ro_s <= dist.n_rows and n_cols + co_s <= dist.n_cols
+            and dist_to_layout(dist) == layout)
 
 
 def fused_sketch_supported(dist, n_rows: int, n_cols: int, ro_s: int,
                            co_s: int, op_s, dtype) -> bool:
     """Static eligibility for K1: a RowMajor-natural Gaussian/Uniform
     operator, NoTrans, float32 or bf16 data, any in-range submatrix."""
+    return _supported(dist, n_rows, n_cols, ro_s, co_s, op_s, dtype,
+                      Layout.RowMajor)
+
+
+def fused_sketch_colmajor_supported(dist, n_rows: int, n_cols: int,
+                                    ro_s: int, co_s: int, op_s,
+                                    dtype) -> bool:
+    """Static eligibility for K2: the same for a ColMajor-natural
+    operator."""
+    return _supported(dist, n_rows, n_cols, ro_s, co_s, op_s, dtype,
+                      Layout.ColMajor)
+
+
+def _check_call(S, A, rows_s, cols_s, ro_s, co_s, layout):
+    """Check a K1/K2 call; True for a Gaussian operator."""
     from ..dense import DenseDistName, dist_to_layout
-    return (dtype in (torch.float32, torch.bfloat16)
-            and dist.family in (DenseDistName.Gaussian, DenseDistName.Uniform)
-            and op_s == Op.NoTrans
-            and n_rows + ro_s <= dist.n_rows and n_cols + co_s <= dist.n_cols
-            and dist_to_layout(dist) == Layout.RowMajor)
+    _check_rng(S.seed_state)
+    if dist_to_layout(S.dist) != layout:
+        raise ValueError(f"this fused kernel takes {layout.name}-natural "
+                         "operators")
+    if S.dist.family not in (DenseDistName.Gaussian, DenseDistName.Uniform):
+        raise ValueError("the fused kernel takes Gaussian or Uniform operators")
+    if not (0 <= ro_s and rows_s + ro_s <= S.dist.n_rows
+            and 0 <= co_s and cols_s + co_s <= S.dist.n_cols):
+        raise ValueError("submatrix out of bounds")
+    if A.dim() != 2 or A.shape[0] != cols_s:
+        raise ValueError(f"A must be ({cols_s}, n), got {tuple(A.shape)}")
+    return S.dist.family == DenseDistName.Gaussian
 
 
 def _fused_plan(S, A, rows_s, cols_s, ro_s, co_s):
@@ -86,36 +134,33 @@ def _fused_plan(S, A, rows_s, cols_s, ro_s, co_s):
     The submatrix's first counter folds into the base state. An unaligned
     co_s starts at the previous counter boundary, with co_s % 4 zero rows
     padded on top of A: the extra operator columns multiply zero data."""
-    from ..dense import DenseDistName, dist_to_layout, major_axis_length
-    _check_rng(S.seed_state)
-    rows_s = S.dist.n_rows if rows_s is None else int(rows_s)
-    cols_s = S.dist.n_cols if cols_s is None else int(cols_s)
-    if dist_to_layout(S.dist) != Layout.RowMajor:
-        raise ValueError("the fused kernel takes RowMajor-natural operators")
-    if S.dist.family not in (DenseDistName.Gaussian, DenseDistName.Uniform):
-        raise ValueError("the fused kernel takes Gaussian or Uniform operators")
-    if not (0 <= ro_s and rows_s + ro_s <= S.dist.n_rows
-            and 0 <= co_s and cols_s + co_s <= S.dist.n_cols):
-        raise ValueError("submatrix out of bounds")
-    if A.dim() != 2 or A.shape[0] != cols_s:
-        raise ValueError(f"A must be ({cols_s}, n), got {tuple(A.shape)}")
-    if A.dtype != torch.bfloat16:
-        A = A.to(torch.float32)
-    ctr_stride = _ctr_stride(major_axis_length(S.dist))
+    gaussian = _check_call(S, A, rows_s, cols_s, ro_s, co_s, Layout.RowMajor)
+    ctr_stride = _ctr_stride(S.dist.n_cols)
     fbs = co_s % _CTR
     if fbs:
         A = torch.cat([A.new_zeros((fbs, A.shape[1])), A])
     base = S.seed_state.incr(ro_s * ctr_stride + (co_s - fbs) // _CTR)
-    gaussian = S.dist.family == DenseDistName.Gaussian
     return base, A.contiguous(), rows_s, ctr_stride, gaussian
 
 
-def _fused_plain(base: RNGState, A, d, ctr_stride, gaussian, alpha):
-    m = A.shape[0]
-    nblk = -(-m // _CTR)
-    vals = rowmajor_values(base, d, nblk, ctr_stride,
-                           "boxmul_fast" if gaussian else "uneg11",
-                           A.device)[:, :m]
+def _colmajor_plan(S, A, rows_s, cols_s, ro_s, co_s):
+    """(base state, data, d, shift, ctr_stride, gaussian) of a K2 call.
+
+    Element (i, c) of the block lives at counter
+    base + c * ctr_stride + (shift + i) / 4, lane (shift + i) % 4: the
+    column offset and the aligned part of the row offset fold into the
+    base state, and shift = ro_s % 4 (the counter stride comes from the
+    TRUE parent height)."""
+    gaussian = _check_call(S, A, rows_s, cols_s, ro_s, co_s, Layout.ColMajor)
+    ctr_stride = _ctr_stride(S.dist.n_rows)
+    shift = ro_s % _CTR
+    base = S.seed_state.incr(co_s * ctr_stride + (ro_s - shift) // _CTR)
+    return base, A.contiguous(), rows_s, shift, ctr_stride, gaussian
+
+
+def _bf16_product(vals, A, gaussian, alpha):
+    """alpha * vals @ A with both operands rounded to bf16 and a float32
+    product; bf16 out for bf16 data."""
     if not gaussian:
         vals = vals * _SQRT3
     s_bf = vals.to(torch.bfloat16).to(torch.float32)
@@ -126,24 +171,126 @@ def _fused_plain(base: RNGState, A, d, ctr_stride, gaussian, alpha):
     return out.to(torch.bfloat16) if A.dtype == torch.bfloat16 else out
 
 
-def _fused_launch(base: RNGState, A, d, ctr_stride, gaussian, alpha):
+def _transform(gaussian):
+    return "boxmul_fast" if gaussian else "uneg11"
+
+
+def _fused_plain(base: RNGState, A, d, ctr_stride, gaussian, alpha):
+    m = A.shape[0]
+    vals = rowmajor_values(base, d, -(-m // _CTR), ctr_stride,
+                           _transform(gaussian), A.device)[:, :m]
+    return _bf16_product(vals, A, gaussian, alpha)
+
+
+def _colmajor_plain(base: RNGState, A, d, shift, ctr_stride, gaussian,
+                    alpha):
+    # the natural (transposed) block: row c holds operator column c
+    vals = rowmajor_values(base, A.shape[0], -(-(shift + d) // _CTR),
+                           ctr_stride, _transform(gaussian), A.device)
+    return _bf16_product(vals[:, shift:shift + d].T, A, gaussian, alpha)
+
+
+def _launch(colmajor, base: RNGState, A, d, shift, ctr_stride, gaussian,
+            alpha):
+    name = "K2" if colmajor else "K1"
     if A.dtype not in (torch.float32, torch.bfloat16):
-        raise ValueError(f"K1 takes float32 or bf16 data, not {A.dtype}")
+        raise ValueError(f"{name} takes float32 or bf16 data, not {A.dtype}")
     if A.dim() != 2 or not A.is_contiguous():
-        raise ValueError("K1 takes a contiguous 2-D row-major A")
-    if d > _MAX_GRID_Y_ROWS:
-        raise ValueError(f"K1 takes at most {_MAX_GRID_Y_ROWS} operator rows")
+        raise ValueError(f"{name} takes a contiguous 2-D row-major A")
+    if d + shift > _MAX_GRID_Y_ROWS:
+        raise ValueError(f"{name} takes at most {_MAX_GRID_Y_ROWS} operator "
+                         "rows")
     m, n = A.shape
     lib = _build.load()
     with torch.cuda.device(A.device):
         out = torch.empty((d, n), dtype=torch.float32, device=A.device)
-        code = lib.rbt_fused_sketch(
-            A.data_ptr(), int(A.dtype == torch.bfloat16), out.data_ptr(),
-            d, m, n, ctr_stride, _seed_words(base),
-            _RNG_CODES[base.rng], int(gaussian), float(alpha), _stream(A))
-        fused_sketch.launches += 1
-    _build.check(code, "fused_sketch_kernel launch")
+        head = (A.data_ptr(), int(A.dtype == torch.bfloat16), out.data_ptr(),
+                d, m, n)
+        tail = (ctr_stride, _seed_words(base), _RNG_CODES[base.rng],
+                int(gaussian), float(alpha), _stream(A))
+        if colmajor:
+            code = lib.rbt_fused_sketch_T(*head, shift, *tail)
+            fused_sketch_colmajor.launches += 1
+        else:
+            code = lib.rbt_fused_sketch(*head, *tail)
+            fused_sketch.launches += 1
+    _build.check(code, ("fused_sketch_T_kernel" if colmajor
+                        else "fused_sketch_kernel") + " launch")
     return out.to(torch.bfloat16) if A.dtype == torch.bfloat16 else out
+
+
+def _require_cpu(A):
+    if A.device.type != "cpu":
+        raise ValueError(f"no fused sketch kernel for {A.device}")
+
+
+def _k1(S, A, alpha, rows_s, cols_s, ro_s, co_s):
+    base, A, d, ctr_stride, gaussian = _fused_plan(S, A, rows_s, cols_s,
+                                                   ro_s, co_s)
+    if A.is_cuda:
+        return _launch(False, base, A, d, 0, ctr_stride, gaussian, alpha)
+    _require_cpu(A)
+    return _fused_plain(base, A, d, ctr_stride, gaussian, alpha)
+
+
+def _k2(S, A, alpha, rows_s, cols_s, ro_s, co_s):
+    base, A, d, shift, ctr_stride, gaussian = _colmajor_plan(
+        S, A, rows_s, cols_s, ro_s, co_s)
+    if A.is_cuda:
+        return _launch(True, base, A, d, shift, ctr_stride, gaussian, alpha)
+    _require_cpu(A)
+    return _colmajor_plain(base, A, d, shift, ctr_stride, gaussian, alpha)
+
+
+def _transposed_cotangent(dist, state, alpha, rows_s, cols_s, ro_s, co_s,
+                          g):
+    """dA = alpha * block(dist, state)^T @ g through the other kernel on
+    the transposed distribution, or, for a square distribution (which
+    transposes to itself, so the identity fails), the filled block."""
+    from ..dense import DenseDist, DenseSkOp, dist_to_layout, fill_dense_submat
+    if dist.n_rows != dist.n_cols:
+        dist_t = DenseDist(dist.n_cols, dist.n_rows, dist.family,
+                           dist.major_axis)
+        run = _k1 if dist_to_layout(dist_t) == Layout.RowMajor else _k2
+        return run(DenseSkOp(dist_t, state), g, alpha, cols_s, rows_s, co_s,
+                   ro_s)
+    blk = fill_dense_submat(dist, state, rows_s, cols_s, ro_s, co_s,
+                            device=g.device)
+    out = torch.matmul(blk.T, g.to(torch.float32))
+    return (out * torch.tensor(alpha, dtype=torch.float32)).to(g.dtype)
+
+
+class _Sketch(torch.autograd.Function):
+    """alpha * block(S) @ A through K1 or K2 (``run``), differentiable in A.
+    Saves the distribution, the seed state, alpha and the block's offsets:
+    neither A nor the operator."""
+
+    @staticmethod
+    def forward(ctx, A, S, run, alpha, rows_s, cols_s, ro_s, co_s):
+        ctx.call = (S.dist, S.seed_state, alpha, rows_s, cols_s, ro_s, co_s)
+        ctx.a_dtype = A.dtype
+        return run(S, A, alpha, rows_s, cols_s, ro_s, co_s)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        dA = _transposed_cotangent(*ctx.call, g.to(ctx.a_dtype))
+        return (dA,) + (None,) * 7
+
+
+def _args(S, A, rows_s, cols_s):
+    """A as the kernels take it, and the block's dimensions."""
+    rows_s = S.dist.n_rows if rows_s is None else int(rows_s)
+    cols_s = S.dist.n_cols if cols_s is None else int(cols_s)
+    if A.dtype != torch.bfloat16:  # bf16 streams through uncast
+        A = A.to(torch.float32)
+    return A, rows_s, cols_s
+
+
+def _apply(run, S, A, alpha, rows_s, cols_s, ro_s, co_s):
+    A, rows_s, cols_s = _args(S, A, rows_s, cols_s)
+    return _Sketch.apply(A, S, run, float(alpha), rows_s, cols_s, int(ro_s),
+                         int(co_s))
 
 
 def fused_sketch(S, A: torch.Tensor, alpha: float = 1.0, rows_s=None,
@@ -154,17 +301,31 @@ def fused_sketch(S, A: torch.Tensor, alpha: float = 1.0, rows_s=None,
     S: a lazy RowMajor-natural DenseSkOp; A: (cols_s, n) float32 or bf16
     (other dtypes are cast to float32). The output is float32, or bf16 for
     bf16 data; rows walk with the parent's counter stride, so the block is
-    bit-identical to slicing the full operator."""
-    base, A, d, ctr_stride, gaussian = _fused_plan(S, A, rows_s, cols_s,
-                                                   ro_s, co_s)
-    if A.is_cuda:
-        return _fused_launch(base, A, d, ctr_stride, gaussian, alpha)
-    if A.device.type != "cpu":
-        raise ValueError(f"no fused sketch kernel for {A.device}")
-    return _fused_plain(base, A, d, ctr_stride, gaussian, alpha)
+    bit-identical to slicing the full operator. Differentiable in A: the
+    backward pass runs K2 (see the module docstring)."""
+    return _apply(_k1, S, A, alpha, rows_s, cols_s, ro_s, co_s)
 
 
 fused_sketch.launches = 0
+
+
+def fused_sketch_colmajor(S, A: torch.Tensor, alpha: float = 1.0,
+                          rows_s=None, cols_s=None, ro_s: int = 0,
+                          co_s: int = 0) -> torch.Tensor:
+    """B = alpha * submat(S) @ A for a lazy ColMajor-natural DenseSkOp,
+    the block generated inside the kernel (K2) on a CUDA tensor, or by the
+    plain version on a CPU one. Element (i, c) of S lives at counter
+    c * ceil(n_rows / 4) + i / 4, lane i % 4. Data, output and gradient as
+    for ``fused_sketch``; the backward pass runs K1."""
+    return _apply(_k2, S, A, alpha, rows_s, cols_s, ro_s, co_s)
+
+
+fused_sketch_colmajor.launches = 0
+
+
+def _reference(plan, plain, S, A, alpha, rows_s, cols_s, ro_s, co_s):
+    A, rows_s, cols_s = _args(S, A, rows_s, cols_s)
+    return plain(*plan(S, A, rows_s, cols_s, ro_s, co_s), float(alpha))
 
 
 def fused_sketch_reference(S, A: torch.Tensor, alpha: float = 1.0,
@@ -173,10 +334,20 @@ def fused_sketch_reference(S, A: torch.Tensor, alpha: float = 1.0,
     """The plain PyTorch version of K1 on A's device: the fill with the
     kernel's transform, both operands rounded to bf16, then a float32
     ``torch.matmul`` (which follows ``torch.backends.cuda.matmul.allow_tf32``
-    on the card: a reference sets it to False)."""
-    base, A, d, ctr_stride, gaussian = _fused_plan(S, A, rows_s, cols_s,
-                                                   ro_s, co_s)
-    return _fused_plain(base, A, d, ctr_stride, gaussian, alpha)
+    on the card: a reference sets it to False). Not differentiable."""
+    return _reference(_fused_plan, _fused_plain, S, A, alpha, rows_s, cols_s,
+                      ro_s, co_s)
+
+
+def fused_sketch_colmajor_reference(S, A: torch.Tensor, alpha: float = 1.0,
+                                    rows_s=None, cols_s=None, ro_s: int = 0,
+                                    co_s: int = 0) -> torch.Tensor:
+    """The plain PyTorch version of K2 on A's device: the natural
+    (transposed) block from ``rowmajor_values`` with the kernel's
+    transform, sliced and transposed, then the product as for
+    ``fused_sketch_reference``."""
+    return _reference(_colmajor_plan, _colmajor_plain, S, A, alpha, rows_s,
+                      cols_s, ro_s, co_s)
 
 
 # ------------------------------------------------------------------ K3 ---
@@ -242,9 +413,11 @@ def _orient(blk, colmajor):
 def fill_block(S, rows_s: int, cols_s: int, ro_s: int = 0, co_s: int = 0,
                device=None) -> torch.Tensor:
     """The (rows_s, cols_s) float32 block of S at (ro_s, co_s), in math
-    orientation, generated by K3 on a CUDA device or by the plain fill on
-    the CPU. A ColMajor-natural block comes back as a transposed view."""
-    device = torch.device("cpu" if device is None else device)
+    orientation, generated by K3 on a CUDA device (the default) or by the
+    plain fill on the CPU (``device="cpu"``). A ColMajor-natural block
+    comes back as a transposed view."""
+    from ..dense import default_device
+    device = default_device(device)
     base, g_rows, g_cols, shift, ctr_stride, gaussian, colmajor = \
         _fill_plan(S, rows_s, cols_s, ro_s, co_s)
     if device.type == "cuda":
@@ -263,8 +436,11 @@ fill_block.launches = 0
 
 def fill_block_reference(S, rows_s: int, cols_s: int, ro_s: int = 0,
                          co_s: int = 0, device=None) -> torch.Tensor:
-    """The plain PyTorch version of K3 on ``device``: the counter-addressed
-    fill with K3's transform (signed-view u01, sin/cos)."""
+    """The plain PyTorch version of K3 on ``device`` (the card by
+    default): the counter-addressed fill with K3's transform (signed-view
+    u01, sin/cos)."""
+    from ..dense import default_device
+    device = default_device(device)
     base, g_rows, g_cols, shift, ctr_stride, gaussian, colmajor = \
         _fill_plan(S, rows_s, cols_s, ro_s, co_s)
     return _orient(_fill_plain(base, g_rows, g_cols, shift, ctr_stride,

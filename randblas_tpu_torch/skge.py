@@ -5,18 +5,31 @@ randblas_tpu/skge.py, dense operators).
     right: B_new = alpha * op_a(A) @ op_s(submat(S)) + beta * B
 
 A and B are 2-D tensors (row-major, shape == math shape); S is a
-DenseSkOp. Routes, each counted in ``route_counts``:
+DenseSkOp. Routes, tried in this order and each counted in
+``route_counts``:
 
 - ``left_fused``: a left NoTrans sketch by a lazy RowMajor-natural operator
   goes through the fused kernel K1 (ops/fused_sketch.py), which never
-  stores the operator. On CUDA tensors ``use_fused="auto"`` takes it
-  whenever ``fused_sketch_supported`` holds; on CPU tensors "auto" takes the
-  staged route, and ``use_fused=True`` takes K1's plain version.
+  stores the operator.
+- ``left_colmajor_fused``: the same for a ColMajor-natural operator
+  (wide+Short, tall+Long), through K2.
+- ``left_trans_fused``: a left sketch by op_s = Trans. The transposed block
+  block(S, r, c, ro, co)^T is block(S_t, c, r, co, ro) of the transposed
+  distribution S_t with the same seed, whose natural layout is the other
+  one, so it goes through K1 or K2.
+- ``right_fused``: B = op_a(A) @ op_s(block) = (op_s(block)^T @ op_a(A)^T)^T
+  through K1: op_s = Trans with a RowMajor-natural S, or op_s = NoTrans with
+  a ColMajor-natural S (its S_t is RowMajor-natural).
 - ``left_staged`` / ``right_staged``: the operator block is filled, then
-  multiplied with ``torch.matmul`` (float64 runs native FP64). This also
-  carries the ColMajor-natural left, left-Trans and right sketches, which
-  the JAX package sends to its transposed kernel on a TPU; that kernel (K2)
-  is not ported yet.
+  multiplied with ``torch.matmul`` (float64 runs native FP64).
+
+A fused route needs a lazy operator, a Philox4x32/Threefry4x32 seed and
+float32 or bf16 data. On CUDA tensors ``use_fused="auto"`` takes a fused
+route whenever one is eligible; on CPU tensors "auto" takes the staged
+route, and ``use_fused=True`` takes the kernels' plain versions. A square
+distribution transposes to itself, so the identity behind the left-Trans
+and right routes fails for it and they leave it to the staged route. The
+fused routes are differentiable in A (ops/fused_sketch.py).
 
 No dispatch gate here comes from a TPU measurement; profit gates for the
 H100 are ROADMAP.md item 13.
@@ -30,11 +43,12 @@ from typing import Optional
 import torch
 
 from .base import Op, Side, dims_before_op, require
-from .dense import DenseSkOp
+from .dense import DenseDist, DenseSkOp
 
-# Fused-kernel dispatch policy: "auto" takes K1 on CUDA tensors whenever
-# the call qualifies; True forces it (its plain version on the CPU) and
-# raises if the call does not qualify; False always takes the staged route.
+# Fused-kernel dispatch policy: "auto" takes a fused route (K1 or K2) on
+# CUDA tensors whenever the call qualifies; True forces the fused routes
+# (the kernels' plain versions on the CPU), and a forced left sketch that
+# no fused route takes raises; False always takes the staged route.
 use_fused = "auto"
 
 # Staged-route fill policy: False (default) fills with the plain PyTorch
@@ -89,17 +103,75 @@ def _scaled(alpha, prod: torch.Tensor) -> torch.Tensor:
     return torch.as_tensor(alpha, dtype=prod.dtype) * prod
 
 
-def _fused_eligible(S: DenseSkOp, rows_s, cols_s, ro_s, co_s, op_s,
-                    A: torch.Tensor) -> bool:
-    from .ops.fused_sketch import SUPPORTED_RNGS, fused_sketch_supported
-    if use_fused is False or S.materialized is not None:
-        return False
-    if S.seed_state.rng not in SUPPORTED_RNGS:
-        return False
-    if not fused_sketch_supported(S.dist, rows_s, cols_s, ro_s, co_s, op_s,
-                                  A.dtype):
-        return False
-    return use_fused is True or A.is_cuda
+def _fused_gates_ok(S: DenseSkOp, A: torch.Tensor) -> bool:
+    from .ops.fused_sketch import SUPPORTED_RNGS
+    return (use_fused is not False and S.materialized is None
+            and S.seed_state.rng in SUPPORTED_RNGS
+            and A.dtype in (torch.float32, torch.bfloat16)
+            and (use_fused is True or A.is_cuda))
+
+
+def _transposed_op(S: DenseSkOp) -> DenseSkOp:
+    """The operator of the transposed distribution with the same seed."""
+    d = S.dist
+    return DenseSkOp(DenseDist(d.n_cols, d.n_rows, d.family, d.major_axis),
+                     S.seed_state, dtype=S.dtype)
+
+
+def _fused(S: DenseSkOp, a_mat, alpha, blk):
+    """(kernel name, alpha * block(S) @ a_mat) through K1 or K2 for the
+    block ``blk`` = (rows_s, cols_s, ro_s, co_s), or None if neither
+    takes it."""
+    from .ops import fused_sketch as fs
+    rows_s, cols_s, ro_s, co_s = blk
+    for name, supported, kernel in (
+            ("K1", fs.fused_sketch_supported, fs.fused_sketch),
+            ("K2", fs.fused_sketch_colmajor_supported,
+             fs.fused_sketch_colmajor)):
+        if supported(S.dist, *blk, Op.NoTrans, a_mat.dtype):
+            return name, kernel(S, a_mat, alpha=float(alpha), rows_s=rows_s,
+                                cols_s=cols_s, ro_s=ro_s, co_s=co_s)
+    return None
+
+
+def _left_fused_or_none(S: DenseSkOp, a_mat, blk, op_s: Op, alpha):
+    """(route, alpha * op_s(block(S)) @ a_mat) through K1 or K2, or None."""
+    if not _fused_gates_ok(S, a_mat):
+        return None
+    if op_s == Op.NoTrans:
+        fused = _fused(S, a_mat, alpha, blk)
+        if fused is None:
+            return None
+        kernel, prod = fused
+        return ("left_fused" if kernel == "K1" else "left_colmajor_fused",
+                prod)
+    if S.n_rows == S.n_cols:
+        return None
+    rows_s, cols_s, ro_s, co_s = blk
+    fused = _fused(_transposed_op(S), a_mat, alpha,
+                   (cols_s, rows_s, co_s, ro_s))
+    return None if fused is None else ("left_trans_fused", fused[1])
+
+
+def _right_fused_or_none(S: DenseSkOp, a_mat, blk, op_s: Op, alpha):
+    """alpha * a_mat @ op_s(block(S)) through K1, or None. The left operand
+    of the transposed product is the stored block for op_s = Trans, and
+    the transposed distribution's block for op_s = NoTrans."""
+    if not _fused_gates_ok(S, a_mat):
+        return None
+    if op_s == Op.Trans:
+        S_l = S
+    elif S.n_rows != S.n_cols:
+        rows_s, cols_s, ro_s, co_s = blk
+        S_l, blk = _transposed_op(S), (cols_s, rows_s, co_s, ro_s)
+    else:
+        return None
+    from .ops.fused_sketch import fused_sketch, fused_sketch_supported
+    if not fused_sketch_supported(S_l.dist, *blk, Op.NoTrans, a_mat.dtype):
+        return None
+    rows_s, cols_s, ro_s, co_s = blk
+    return fused_sketch(S_l, a_mat.T, alpha=float(alpha), rows_s=rows_s,
+                        cols_s=cols_s, ro_s=ro_s, co_s=co_s).T
 
 
 def sketch_general(
@@ -155,20 +227,20 @@ def sketch_general(
         rows_s, cols_s = dims_before_op(d, m, op_s)
         require(S.n_rows >= rows_s + ro_s, "S row range out of bounds")
         require(S.n_cols >= cols_s + co_s, "S column range out of bounds")
-        if _fused_eligible(S, rows_s, cols_s, ro_s, co_s, op_s, A):
-            from .ops.fused_sketch import fused_sketch
-            route_counts["left_fused"] += 1
-            prod = fused_sketch(S, a_mat, alpha=float(alpha), rows_s=rows_s,
-                                cols_s=cols_s, ro_s=ro_s, co_s=co_s)
+        fused = _left_fused_or_none(S, a_mat, (rows_s, cols_s, ro_s, co_s),
+                                    op_s, alpha)
+        if fused is not None:
+            route, prod = fused
         else:
             require(use_fused is not True,
                     "fused sketch path forced but the call is unsupported "
-                    "(the fused kernel takes lazy RowMajor-natural "
-                    "Gaussian/Uniform operators, NoTrans, f32/bf16 data)")
-            route_counts["left_staged"] += 1
+                    "(the fused kernels take lazy Gaussian/Uniform "
+                    "operators with a 4x32 generator and f32/bf16 data)")
+            route = "left_staged"
             s_blk = _dense_block(S, rows_s, cols_s, ro_s, co_s, op_s, dtype,
                                  A.device)
             prod = _scaled(alpha, torch.matmul(s_blk, a_mat))
+        route_counts[route] += 1
         expected_shape = (d, n)
     else:
         n, m = a_mat.shape
@@ -178,10 +250,15 @@ def sketch_general(
         rows_s, cols_s = dims_before_op(m, d, op_s)
         require(S.n_rows >= rows_s + ro_s, "S row range out of bounds")
         require(S.n_cols >= cols_s + co_s, "S column range out of bounds")
-        route_counts["right_staged"] += 1
-        s_blk = _dense_block(S, rows_s, cols_s, ro_s, co_s, op_s, dtype,
-                             A.device)
-        prod = _scaled(alpha, torch.matmul(a_mat, s_blk))
+        prod = _right_fused_or_none(S, a_mat, (rows_s, cols_s, ro_s, co_s),
+                                    op_s, alpha)
+        if prod is not None:
+            route_counts["right_fused"] += 1
+        else:
+            route_counts["right_staged"] += 1
+            s_blk = _dense_block(S, rows_s, cols_s, ro_s, co_s, op_s, dtype,
+                                 A.device)
+            prod = _scaled(alpha, torch.matmul(a_mat, s_blk))
         expected_shape = (n, d)
 
     if out is not None:

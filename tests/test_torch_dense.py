@@ -17,6 +17,7 @@ from randblas_tpu import dense as jdense
 from randblas_tpu.ops import dense_fill as jfill
 import randblas_tpu_torch as rt
 from randblas_tpu_torch.ops import dense_fill as tfill
+from randblas_tpu_torch.ops import fused_sketch as tfs
 
 GAUSS_TOL = dict(rtol=2e-3, atol=2e-3)
 
@@ -65,7 +66,7 @@ def test_fill_dense_submat_matches_jax(shape, family, major, block):
     r = shape[0] if r is None else r
     c = shape[1] if c is None else c
     want = _jax_full(shape, family, major)[ro:ro + r, co:co + c]
-    got = rt.fill_dense_submat(td, ts, r, c, ro, co)
+    got = rt.fill_dense_submat(td, ts, r, c, ro, co, device="cpu")
     _assert_values(got, want, family)
     assert got.is_contiguous()
 
@@ -97,7 +98,7 @@ def test_word_stream_matches_jax_bitwise(rng):
 @pytest.mark.parametrize("family", ["Gaussian", "Uniform"])
 def test_other_generators_fill_matches_jax(rng, family):
     jd, js, td, ts = _pair((20, 41), family, "Long", key=8, rng=rng)
-    _assert_values(rt.fill_dense_submat(td, ts, 7, 19, 4, 3),
+    _assert_values(rt.fill_dense_submat(td, ts, 7, 19, 4, 3, device="cpu"),
                    rb.fill_dense_submat(jd, js, 7, 19, 4, 3), family)
 
 
@@ -105,10 +106,10 @@ def test_other_generators_fill_matches_jax(rng, family):
 def test_submatrix_is_slice_of_full_bitwise(shape, family, major):
     td = rt.DenseDist(*shape, rt.DenseDistName[family], rt.MajorAxis[major])
     ts = rt.RNGState.from_key(21)
-    full = rt.fill_dense_submat(td, ts, *shape)
+    full = rt.fill_dense_submat(td, ts, *shape, device="cpu")
     for r, c, ro, co in [(1, 1, 0, 0), (4, 9, 3, 1), (shape[0] - 2, 5, 2, 6),
                          (3, shape[1] - 1, 7, 1)]:
-        sub = rt.fill_dense_submat(td, ts, r, c, ro, co)
+        sub = rt.fill_dense_submat(td, ts, r, c, ro, co, device="cpu")
         assert torch.equal(sub, full[ro:ro + r, co:co + c])
 
 
@@ -119,7 +120,7 @@ def test_next_state_matches_jax(shape, family, major):
     assert rt.compute_next_state(td, ts).to_dict() == \
         jdense.compute_next_state(jd, js).to_dict()
     _, jnext = rb.fill_dense(jd, js)
-    arr, tnext = rt.fill_dense(td, ts)
+    arr, tnext = rt.fill_dense(td, ts, device="cpu")
     assert tnext.to_dict() == jnext.to_dict()
     assert tnext.to_dict() == rt.DenseSkOp(td, ts).next_state.to_dict()
     assert tuple(arr.shape) == shape
@@ -129,9 +130,9 @@ def test_seed_chaining_concatenates_exactly():
     # wide Long operators stacked by rows continue one stream (RowMajor)
     d1 = rt.DenseDist(6, 40)
     s0 = rt.RNGState.from_key(4)
-    a1, s1 = rt.fill_dense(d1, s0)
-    a2, _ = rt.fill_dense(d1, s1)
-    both, _ = rt.fill_dense(rt.DenseDist(12, 40), s0)
+    a1, s1 = rt.fill_dense(d1, s0, device="cpu")
+    a2, _ = rt.fill_dense(d1, s1, device="cpu")
+    both, _ = rt.fill_dense(rt.DenseDist(12, 40), s0, device="cpu")
     assert torch.equal(torch.cat([a1, a2]), both)
 
 
@@ -143,7 +144,7 @@ def test_skop_dtypes_match_jax(dtype, family):
     jd, js, td, ts = _pair((10, 50), family, "Long")
     jS = rb.DenseSkOp(jd, js, dtype=jdt)
     tS = rt.DenseSkOp(td, ts, dtype=dtype)
-    got = tS.submat(5, 20, 2, 9)
+    got = tS.submat(5, 20, 2, 9, device="cpu")
     assert got.dtype == dtype
     want = np.asarray(jS.submat(5, 20, 2, 9).astype(jnp.float32))
     got = got.to(torch.float32)
@@ -152,24 +153,48 @@ def test_skop_dtypes_match_jax(dtype, family):
     else:
         np.testing.assert_allclose(got.numpy(), want, rtol=1e-2, atol=1e-2)
     # a narrowing submat of a float32 operator equals the cast block
-    narrow = rt.DenseSkOp(td, ts).submat(5, 20, 2, 9, dtype=dtype)
-    wide = rt.DenseSkOp(td, ts).submat(5, 20, 2, 9).to(dtype)
+    narrow = rt.DenseSkOp(td, ts).submat(5, 20, 2, 9, dtype=dtype,
+                                         device="cpu")
+    wide = rt.DenseSkOp(td, ts).submat(5, 20, 2, 9, device="cpu").to(dtype)
     assert torch.equal(narrow, wide)
 
 
 def test_skop_materialize_and_blackbox():
     td = rt.DenseDist(8, 30)
     S = rt.DenseSkOp(td, 3)
-    full = S.materialize()
-    assert torch.equal(full, rt.fill_dense_submat(td, S.seed_state, 8, 30))
-    assert torch.equal(S.submat(3, 4, 2, 5), full[2:5, 5:9])
+    full = S.materialize(device="cpu")
+    assert torch.equal(full, rt.fill_dense_submat(td, S.seed_state, 8, 30,
+                                                  device="cpu"))
+    assert torch.equal(S.submat(3, 4, 2, 5, device="cpu"), full[2:5, 5:9])
     held = rt.DenseSkOp(td, S.seed_state, materialized=full)
     assert torch.equal(held.submat(3, 4, 2, 5), full[2:5, 5:9])
     bb = rt.DenseDist(4, 5, rt.DenseDistName.BlackBox)
     with pytest.raises(ValueError):
         rt.DenseSkOp(bb, 0)
     with pytest.raises(ValueError):
-        S.submat(9, 1, 0, 0)
+        S.submat(9, 1, 0, 0, device="cpu")
+
+
+def test_lazy_fills_default_to_the_card():
+    td = rt.DenseDist(8, 30, rt.DenseDistName.Uniform)
+    S = rt.DenseSkOp(td, 3)
+    calls = [lambda: rt.fill_dense_submat(td, S.seed_state, 8, 30),
+             lambda: rt.fill_dense(td, S.seed_state)[0],
+             S.materialize,
+             lambda: S.submat(3, 4, 2, 5),
+             lambda: tfs.fill_block(S, 8, 30),
+             lambda: tfs.fill_block_reference(S, 8, 30)]
+    for call in calls:
+        if torch.cuda.is_available():
+            assert call().is_cuda
+        else:  # never a quiet fill on the CPU
+            with pytest.raises(RuntimeError, match="device='cpu'"):
+                call()
+    # a held operator keeps its own tensor's device
+    full = S.materialize(device="cpu")
+    held = rt.DenseSkOp(td, S.seed_state, materialized=full)
+    assert torch.equal(held.materialize(), full)
+    assert held.submat(3, 4, 2, 5).device.type == "cpu"
 
 
 def test_layout_helpers_match_jax():

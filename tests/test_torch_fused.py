@@ -1,5 +1,6 @@
 """Parity of the plain versions of the port's kernels with the JAX package's
-Pallas kernels, run in interpret mode on the CPU:
+Pallas kernels, run in interpret mode on the CPU (the wrappers get CPU
+tensors, and fills are asked for with device="cpu"):
 
 - K1: randblas_tpu_torch.ops.fused_sketch.fused_sketch (on a CPU tensor it
   runs its plain version) vs randblas_tpu.ops.fused_sketch.fused_sketch(...,
@@ -11,6 +12,9 @@ Pallas kernels, run in interpret mode on the CPU:
   with float32 operands (no bf16 rounding) is 2.0e-3 to 2.4e-3 away, so the
   limit separates a plain version that dropped the rounding; each case also
   asserts that separation.
+- K2: fused_sketch_colmajor vs the JAX package's fused_sketch_colmajor(...,
+  interpret=True), at the same limit and with the same separation from the
+  float32-operand product, for the same reasons.
 - K3: fill_block vs pallas_fill_block(..., interpret=True). Uniform values
   are exact; Gaussian values at rtol/atol 2e-3 (cross-platform log/sin/cos).
 
@@ -85,7 +89,8 @@ def test_k1_plain_matches_jax_interpret(shape, family, rng, d, m, n, ro_s,
                                      rows_s=d, cols_s=m, ro_s=ro_s, co_s=co_s)
     _close(got.numpy(), ref.numpy(), atol=1e-5)
     # the limit tells the bf16-operand product from the float32 one
-    f32 = alpha * (tS.submat(d, m, ro_s, co_s) @ torch.from_numpy(A))
+    f32 = alpha * (tS.submat(d, m, ro_s, co_s, device="cpu")
+                   @ torch.from_numpy(A))
     assert _norm_err(f32.numpy(), want) > 10 * K1_TOL
 
 
@@ -108,8 +113,54 @@ def test_k1_plain_is_the_bf16_product_of_the_fill():
     _, tS = _ops((24, 777), key=9)
     A = torch.from_numpy(_data(700, 40, seed=9))
     got = tfs.fused_sketch(tS, A, rows_s=20, cols_s=700, ro_s=3, co_s=77)
-    dense = tS.submat(20, 700, 3, 77) @ A
+    dense = tS.submat(20, 700, 3, 77, device="cpu") @ A
     _close(got.numpy(), dense.numpy(), atol=2e-2)
+
+
+# (operator shape, family, major, rng, d, m, n, ro_s, co_s, alpha): the
+# ColMajor-natural dists (tall+Long, wide+Short, square+Long)
+K2_CASES = [
+    ((1000, 24), "Gaussian", "Long", "philox4x32", 1000, 24, 40, 0, 0, 1.0),
+    ((40, 3000), "Uniform", "Short", "philox4x32", 33, 2900, 50, 5, 17, 0.5),
+    ((300, 64), "Gaussian", "Long", "threefry4x32", 250, 60, 30, 3, 4, 2.0),
+    ((1030, 48), "Uniform", "Long", "threefry4x32", 1027, 40, 64, 2, 8, 1.0),
+    ((64, 64), "Gaussian", "Long", "philox4x32", 64, 64, 16, 0, 0, 1.0),
+]
+
+
+@pytest.mark.parametrize("shape,family,major,rng,d,m,n,ro_s,co_s,alpha",
+                         K2_CASES)
+def test_k2_plain_matches_jax_interpret(shape, family, major, rng, d, m, n,
+                                        ro_s, co_s, alpha):
+    jS, tS = _ops(shape, family, rng=rng, major=major)
+    A = _data(m, n, seed=d + m)
+    want = jfs.fused_sketch_colmajor(jS, A, alpha=alpha, interpret=True,
+                                     rows_s=d, cols_s=m, ro_s=ro_s,
+                                     co_s=co_s)
+    got = tfs.fused_sketch_colmajor(tS, torch.from_numpy(A), alpha=alpha,
+                                    rows_s=d, cols_s=m, ro_s=ro_s, co_s=co_s)
+    assert got.dtype == torch.float32
+    _close(got.numpy(), want)
+    ref = tfs.fused_sketch_colmajor_reference(
+        tS, torch.from_numpy(A), alpha=alpha, rows_s=d, cols_s=m, ro_s=ro_s,
+        co_s=co_s)
+    assert torch.equal(got, ref)
+    # the limit tells the bf16-operand product from the float32 one
+    f32 = alpha * (tS.submat(d, m, ro_s, co_s, device="cpu")
+                   @ torch.from_numpy(A))
+    assert _norm_err(f32.numpy(), want) > 10 * K1_TOL
+
+
+def test_k2_plain_bf16_data_matches_jax_interpret():
+    jS, tS = _ops((500, 64), key=4)
+    A = _data(64, 128, seed=4)
+    want = jfs.fused_sketch_colmajor(jS, jnp.asarray(A, dtype=jnp.bfloat16),
+                                     interpret=True, rows_s=497, ro_s=3)
+    got = tfs.fused_sketch_colmajor(tS, torch.from_numpy(A).to(torch.bfloat16),
+                                    rows_s=497, ro_s=3)
+    assert got.dtype == torch.bfloat16
+    _close(got.float().numpy(), np.asarray(want.astype(jnp.float32)),
+           atol=1e-2)
 
 
 # (operator shape, family, major, rng, rows, cols, ro_s, co_s)
@@ -128,16 +179,16 @@ def test_k3_plain_matches_jax_interpret(shape, family, major, rng, rows,
     jS, tS = _ops(shape, family, key=6, rng=rng, major=major)
     want = np.asarray(jfs.pallas_fill_block(jS, rows, cols, ro_s, co_s,
                                             interpret=True))
-    got = tfs.fill_block(tS, rows, cols, ro_s, co_s)
+    got = tfs.fill_block(tS, rows, cols, ro_s, co_s, device="cpu")
     assert tuple(got.shape) == (rows, cols)
     if family == "Uniform":
         np.testing.assert_array_equal(got.numpy(), want)
     else:
         np.testing.assert_allclose(got.numpy(), want, rtol=2e-3, atol=2e-3)
-    ref = tfs.fill_block_reference(tS, rows, cols, ro_s, co_s)
+    ref = tfs.fill_block_reference(tS, rows, cols, ro_s, co_s, device="cpu")
     assert torch.equal(got, ref)
     # the same block of the staged fill: Uniform bitwise, Gaussian ~1 ulp
-    staged = tS.submat(rows, cols, ro_s, co_s)
+    staged = tS.submat(rows, cols, ro_s, co_s, device="cpu")
     if family == "Uniform":
         assert torch.equal(got, staged)
     else:
@@ -146,15 +197,24 @@ def test_k3_plain_matches_jax_interpret(shape, family, major, rng, rows,
 
 def test_cpu_tensors_launch_no_kernel():
     tfs.fused_sketch.launches = 0
+    tfs.fused_sketch_colmajor.launches = 0
     tfs.fill_block.launches = 0
     _, tS = _ops((8, 256))
+    _, tcol = _ops((256, 8))
     tfs.fused_sketch(tS, torch.ones(256, 16))
-    tfs.fill_block(tS, 8, 256)
+    tfs.fused_sketch_colmajor(tcol, torch.ones(8, 16))
+    tfs.fill_block(tS, 8, 256, device="cpu")
+    A = torch.ones(256, 16, requires_grad=True)
     with rt.flags(use_fused=True):
-        rt.sketch_general(tS, torch.ones(256, 16))
+        rt.sketch_general(tS, A).sum().backward()
+        rt.sketch_general(tcol, torch.ones(8, 16))
+        rt.sketch_general(tS, torch.ones(8, 16), op_s="T")
+        rt.sketch_general(tcol, torch.ones(16, 256), side="right")
     with rt.flags(use_fused=False, use_kernel_fill=True):
         rt.sketch_general(tS, torch.ones(256, 16))
+    assert A.grad is not None
     assert tfs.fused_sketch.launches == 0
+    assert tfs.fused_sketch_colmajor.launches == 0
     assert tfs.fill_block.launches == 0
 
 
@@ -168,8 +228,12 @@ def test_wrappers_raise_off_cpu_and_cuda():
     with pytest.raises(ValueError, match="sketch kernels take"):
         tfs.fused_sketch(t2, torch.ones(256, 16))
     _, tcol = _ops((256, 8))
+    with pytest.raises(ValueError, match="no fused sketch kernel"):
+        tfs.fused_sketch_colmajor(tcol, torch.ones(8, 16, device="meta"))
     with pytest.raises(ValueError, match="RowMajor-natural"):
         tfs.fused_sketch(tcol, torch.ones(8, 16))
+    with pytest.raises(ValueError, match="ColMajor-natural"):
+        tfs.fused_sketch_colmajor(tS, torch.ones(256, 16))
 
 
 def test_supported_matches_jax():
@@ -183,8 +247,13 @@ def test_supported_matches_jax():
                             (torch.float64, jnp.float64)]:
                 for op, jop in [(Op.NoTrans, JOp.NoTrans),
                                 (Op.Trans, JOp.Trans)]:
-                    for blk in [(8, 16, 0, 0), (8, 16, 8, 48), (16, 64, 1, 0)]:
+                    for blk in [(8, 16, 0, 0), (8, 16, 8, 48), (16, 64, 1, 0),
+                                (16, 8, 48, 8)]:
                         assert tfs.fused_sketch_supported(
                             tS.dist, *blk, op, dt) == \
                             jfs.fused_sketch_supported(jS.dist, *blk, jop,
                                                        jdt)
+                        assert tfs.fused_sketch_colmajor_supported(
+                            tS.dist, *blk, op, dt) == \
+                            jfs.fused_sketch_colmajor_supported(
+                                jS.dist, *blk, jop, jdt)

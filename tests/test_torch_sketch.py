@@ -5,10 +5,10 @@ Tolerances (normalised by max |want|):
 - staged route, float32: 1e-4. Both fill the block and multiply in float32;
   the sums run in another order and Gaussian values differ by ulps
   (cross-platform log/sin/cos).
-- fused route: 1e-4. Both round the operands to bf16 (JAX runs its Pallas
-  kernel in interpret mode, as tests/test_fused_coverage.py does); the
-  readings are about 1.8e-7, while the float32 staged product is 2e-3 to
-  2.7e-3 away, so the limit tells the two apart.
+- fused routes (K1 and K2): 1e-4. Both round the operands to bf16 (JAX
+  runs its Pallas kernels in interpret mode, as tests/test_fused_coverage.py
+  does); the readings are about 1.8e-7, while the float32 staged product is
+  2e-3 to 2.7e-3 away, so the limit tells the two apart.
 - bf16 data on the staged route: 2e-2 (bf16 products and outputs).
 """
 
@@ -46,6 +46,11 @@ def _data(shape, seed):
         np.float32)
 
 
+def _norm_err(got, want):
+    got, want = np.asarray(got, np.float32), np.asarray(want, np.float32)
+    return np.abs(got - want).max() / np.abs(want).max()
+
+
 def _close(got, want, atol):
     got = np.asarray(got.float() if isinstance(got, torch.Tensor) else got,
                      dtype=np.float32)
@@ -57,16 +62,17 @@ def _close(got, want, atol):
 
 @pytest.fixture
 def jax_fused_interpret(monkeypatch):
-    """Force the JAX package's fused dispatch, its Pallas kernel in
-    interpret mode (as tests/test_fused_coverage.py does)."""
+    """Force the JAX package's fused dispatch, its Pallas kernels K1 and K2
+    in interpret mode (as tests/test_fused_coverage.py does)."""
     monkeypatch.setattr(jskge, "use_fused", True)
-    orig = jfs.fused_sketch
+    for name in ("fused_sketch", "fused_sketch_colmajor"):
+        orig = getattr(jfs, name)
 
-    def interp(*args, **kwargs):
-        kwargs["interpret"] = True
-        return orig(*args, **kwargs)
+        def interp(*args, _orig=orig, **kwargs):
+            kwargs["interpret"] = True
+            return _orig(*args, **kwargs)
 
-    monkeypatch.setattr(jfs, "fused_sketch", interp)
+        monkeypatch.setattr(jfs, name, interp)
 
 
 # (operator shape, family, major, A shape, kwargs of sketch_general)
@@ -136,16 +142,100 @@ def test_forced_fused_route_matches_jax(jax_fused_interpret, shape, family,
     _close(got, staged.numpy(), atol=2e-2)
 
 
-def test_forced_fused_raises_where_the_kernel_does_not_apply():
-    _, tS = _ops((300, 40))     # ColMajor-natural: the JAX K2 route
+# (operator shape, family, major, A shape, kwargs, route): every fused
+# route of sketch_general, forced onto the kernels' plain versions
+ROUTE_CASES = [
+    ((1000, 24), "Gaussian", "Long", (24, 40), {}, "left_colmajor_fused"),
+    ((40, 300), "Uniform", "Short", (290, 16),
+     dict(d=33, ro_s=5, co_s=7, alpha=0.5), "left_colmajor_fused"),
+    ((40, 300), "Gaussian", "Short", (50, 290),
+     dict(op_a="T", d=30, ro_s=3), "left_colmajor_fused"),
+    ((300, 40), "Gaussian", "Long", (300, 20), dict(op_s="T"),
+     "left_trans_fused"),                                   # onto K1
+    ((40, 300), "Uniform", "Long", (33, 20),
+     dict(op_s="T", d=250, ro_s=7, co_s=5, alpha=-2.0),
+     "left_trans_fused"),                                   # onto K2
+    ((512, 64), "Gaussian", "Long", (8, 512), dict(side="right"),
+     "right_fused"),
+    ((600, 30), "Uniform", "Long", (20, 500),
+     dict(side="right", d=25, ro_s=7, co_s=3), "right_fused"),
+    ((64, 512), "Gaussian", "Long", (8, 512),
+     dict(side="right", op_s="T", alpha=0.25), "right_fused"),
+    ((512, 64), "Uniform", "Short", (60, 8),
+     dict(side="right", op_s="T", op_a="T", d=500, co_s=2), "right_fused"),
+]
+
+
+@pytest.mark.parametrize("shape,family,major,a_shape,kw,route", ROUTE_CASES)
+def test_forced_fused_routes_match_jax(jax_fused_interpret, shape, family,
+                                       major, a_shape, kw, route):
+    jS, tS = _ops(shape, family, key=9, major=major)
+    A = _data(a_shape, seed=sum(a_shape))
+    want = rb.sketch_general(jS, jnp.asarray(A), **kw)
+    tskge.route_counts.clear()
+    with rt.flags(use_fused=True):
+        got = rt.sketch_general(tS, torch.from_numpy(A), **kw)
+    assert tskge.route_counts == {route: 1}
+    assert got.dtype == torch.float32
+    _close(got, want, atol=1e-4)
+    # and the float32 staged product, to bf16 accuracy
+    staged = rt.sketch_general(tS, torch.from_numpy(A), **kw)
+    _close(got, staged.numpy(), atol=2e-2)
+
+
+@pytest.mark.parametrize("side,a_shape,out_shape,route",
+                         [("left", (24, 12), (100, 12), "left_colmajor_fused"),
+                          ("right", (12, 100), (12, 24), "right_fused")])
+def test_fused_out_and_beta_match_jax(jax_fused_interpret, side, a_shape,
+                                      out_shape, route):
+    jS, tS = _ops((100, 24), "Uniform", key=2)
+    A = _data(a_shape, seed=1)
+    out = _data(out_shape, seed=2)
+    want = rb.sketch_general(jS, jnp.asarray(A), side=side, alpha=2.0,
+                             beta=0.5, out=jnp.asarray(out))
+    tskge.route_counts.clear()
+    with rt.flags(use_fused=True):
+        got = rt.sketch_general(tS, torch.from_numpy(A), side=side,
+                                alpha=2.0, beta=0.5,
+                                out=torch.from_numpy(out))
+    assert tskge.route_counts == {route: 1}
+    _close(got, want, atol=1e-4)
+
+
+@pytest.mark.parametrize("major", ["Long", "Short"])
+def test_square_dists_keep_the_transposed_routes_staged(jax_fused_interpret,
+                                                        major):
+    # a square dist transposes to itself, so block(S)^T is not the
+    # transposed dist's block: the left-Trans and right NoTrans sketches
+    # take the staged route, and under use_fused=True the left one raises
+    jS, tS = _ops((32, 32), major=major, key=4)
+    A = _data((32, 8), seed=4)
+    # the JAX package's fused left-Trans route applies the identity anyway
+    # and returns another product (a fault of the reference)
+    jax_left = rb.sketch_general(jS, jnp.asarray(A), op_s="T")
+    M = np.asarray(jS.materialize())
+    assert _norm_err(jax_left, M.T @ A) > 0.1
+    tskge.route_counts.clear()
     with rt.flags(use_fused=True):
         with pytest.raises(ValueError, match="forced"):
-            rt.sketch_general(tS, torch.ones(40, 8))
+            rt.sketch_general(tS, torch.from_numpy(A), op_s="T")
+        right = rt.sketch_general(tS, torch.from_numpy(A.T), side="right")
+    assert tskge.route_counts == {"right_staged": 1}
+    _close(right, A.T @ M, atol=1e-4)
+    left = rt.sketch_general(tS, torch.from_numpy(A), op_s="T")
+    _close(left, M.T @ A, atol=1e-4)
+
+
+def test_forced_fused_raises_where_the_kernel_does_not_apply():
+    _, tS = _ops((300, 40))
+    with rt.flags(use_fused=True):
+        with pytest.raises(ValueError, match="forced"):
+            rt.sketch_general(tS, torch.ones(40, 8, dtype=torch.float64))
     held = rt.DenseSkOp(tS.dist, tS.seed_state,
-                        materialized=tS.materialize())
+                        materialized=tS.materialize(device="cpu"))
     _, wide = _ops((8, 64))
     held_wide = rt.DenseSkOp(wide.dist, wide.seed_state,
-                             materialized=wide.materialize())
+                             materialized=wide.materialize(device="cpu"))
     tskge.route_counts.clear()
     with rt.flags(use_fused=False):
         rt.sketch_general(wide, torch.ones(64, 4))
@@ -194,13 +284,69 @@ def test_beta_zero_overwrites_nan_out():
         rt.sketch_general(tS, A, beta=1.0, out=torch.zeros(3, 3))
 
 
+@pytest.mark.parametrize("shape,major,kw", [
+    ((16, 256), "Long", {}),                                # K1
+    ((256, 16), "Long", dict(alpha=0.5)),                   # K2
+    ((256, 16), "Long", dict(op_s="T", d=200, m=12, ro_s=9, co_s=3)),
+])
+def test_sketch_vector_matches_jax(jax_fused_interpret, shape, major, kw):
+    jS, tS = _ops(shape, key=6, major=major)
+    op_s = kw.get("op_s", "N")
+    d, m = kw.get("d", shape[0]), kw.get("m", shape[1])
+    x = _data((m if op_s == "N" else d,), seed=6)
+    y = _data((d if op_s == "N" else m,), seed=7)
+    want = rb.sketch_vector(jS, jnp.asarray(x), beta=0.5, out=jnp.asarray(y),
+                            **kw)
+    with rt.flags(use_fused=True):
+        got = rt.sketch_vector(tS, torch.from_numpy(x), beta=0.5,
+                               out=torch.from_numpy(y), **kw)
+    _close(got, want, atol=1e-4)
+    with pytest.raises(ValueError, match="x length mismatch"):
+        rt.sketch_vector(tS, torch.ones(3))
+    with pytest.raises(ValueError, match="both d and m"):
+        rt.sketch_vector(tS, torch.from_numpy(x), d=4)
+
+
+@pytest.mark.parametrize("side", ["left", "right"])
+def test_sketch_symmetric_matches_jax(jax_fused_interpret, side):
+    # the right operator at least half the data's size: JAX's right route
+    # (a v5e gate the port does not copy) fuses only from there
+    jS, tS = _ops((24, 200) if side == "left" else (200, 120), key=8)
+    X = _data((200, 200), seed=8)
+    A = (X + X.T) / 2
+    want = rb.sketch_symmetric(jS, jnp.asarray(A), side=side, alpha=0.5)
+    tskge.route_counts.clear()
+    with rt.flags(use_fused=True):
+        got = rt.sketch_symmetric(tS, torch.from_numpy(A), side=side,
+                                  alpha=0.5)
+    assert tskge.route_counts == {f"{side}_fused": 1}
+    _close(got, want, atol=1e-4)
+
+
+def test_require_symmetric_matches_jax():
+    A = np.eye(4, dtype=np.float32)
+    A[1, 2] = 0.5
+    with pytest.raises(ValueError) as want:
+        rb.require_symmetric(jnp.asarray(A))
+    with pytest.raises(ValueError) as got:
+        rt.require_symmetric(torch.from_numpy(A))
+    assert str(got.value) == str(want.value)
+    rt.require_symmetric(torch.from_numpy(A), tol=-1.0)
+    rt.require_symmetric(torch.from_numpy(A), tol=1.0)
+    _, tS = _ops((8, 4))
+    with pytest.raises(ValueError, match="symmetry check failed"):
+        rt.sketch_symmetric(tS, torch.from_numpy(A))
+    with pytest.raises(ValueError, match="must be square"):
+        rt.sketch_symmetric(tS, torch.ones(4, 3))
+
+
 def test_convert_carries_operators_across():
     jS, _ = _ops((20, 300), "Uniform", key=77)
     jS = rb.DenseSkOp(jS.dist, jS.seed_state.incr(2 ** 33 + 5))
     d = jS.seed_state.to_dict()
     tS = rt.skop_from_jax(20, 300, jS.dist.family.name,
                           jS.dist.major_axis.name, d)
-    np.testing.assert_array_equal(tS.materialize().numpy(),
+    np.testing.assert_array_equal(tS.materialize(device="cpu").numpy(),
                                   np.asarray(jS.materialize()))
     assert rt.state_from_jax(d).to_dict() == d
     assert rt.dist_from_jax(20, 300, "U", "L") == tS.dist
