@@ -7,13 +7,15 @@ the CUDA toolkit:
     python3 chip_smoke.py
 
 It builds the kernels from ``randblas_tpu_torch/csrc`` with nvcc, checks
-the fill kernel K3 and the fused sketch kernels K1 and K2 against their
-plain PyTorch versions on the card, and drives these paths through the
-public entry points, each with the launch counts set to 0 just before it
-and read just after:
+the fill kernel K3, the fused sketch kernels K1 and K2, the SASO sketch
+kernel K4 and the BlockedELL SpMM kernel K5 against their plain PyTorch
+versions on the card (K4 and K5 also launched twice on the same inputs and
+compared bit for bit), and drives these paths through the public entry
+points, each with the launch counts set to 0 just before it and read just
+after:
 
 - the main path, a left sketch by a wide Gaussian operator, which launches
-  K1 once and K3 never:
+  K1 once and no other kernel:
 
     sketch_general(DenseSkOp(DenseDist(1024, 65536), RNGState.from_key(0)),
                    A, side="left")          # A: (65536, 4096) float32
@@ -27,15 +29,30 @@ and read just after:
 - (d) the right sketch of benchmarks/run_all.py config 2, A2 (16384, 16384)
   by a Uniform DenseDist(16392, 1032) at d=1024, ro_s=co_s=8: the right
   route through K1 once (the autotranspose identity);
+- (e) run_all.py config 3: a SASO SparseDist(1024, 65536, vec_nnz=8),
+  filled on the card, sketching A3 (65536, 2048) float32 from the left:
+  K4 once;
+- (e') the transposed full route: a right sketch of A3^T (2048, 65536) by
+  the tall SASO SparseDist(65536, 1024, vec_nnz=8): K4 once, on a
+  column-major view of the data;
+- (f) run_all.py config 4: sketch_sparse of COO data (20000 x 10000, 1e6
+  entries) from the left by DenseDist(512, 20000): the COO route, no
+  kernel;
+- (g) config 4b: the same data as a word-major BlockedELL, sketched from
+  the right by DenseDist(10000, 512): K5 once; and the same right sketch
+  of the COO data, which reaches K5 once through the cached BlockedELL
+  conversion;
 
 and the staged route with ``use_kernel_fill``, which launches K3 once and
-no fused kernel. Then it times each kernel, its plain version, the bf16
-``torch.matmul`` of the pre-materialised operator (a yardstick the port
-never calls) and the paths with CUDA events. The line before the last is a
-JSON object listing K1, K2 and K3; the last line is {"ok": true,
-"device": {...}}. Any failed check raises, so the exit code is non-zero
-and no result line is printed. Without a CUDA device it exits non-zero
-before running anything. It imports nothing of JAX.
+no other kernel. Then it times each kernel, its plain version, a PyTorch
+library call on the same inputs (a yardstick the port never calls: bf16
+``torch.matmul`` on the materialised operator for K1, K2 and K4, and
+``torch.sparse.mm`` on a CUDA CSR tensor with float32 data for K4 and K5)
+and the paths with CUDA events. The line before the last is a JSON object
+listing K1 to K5; the last line is {"ok": true, "device": {...}}. Any
+failed check raises, so the exit code is non-zero and no result line is
+printed. Without a CUDA device it exits non-zero before running anything.
+It imports nothing of JAX.
 """
 
 import json
@@ -59,8 +76,20 @@ STAGED_REL_TOL = 2e-2  # bf16-operand product vs the float32 staged route
 GAUSS_ABS_TOL = 1e-4   # K3 Gaussian vs the plain fill: libm ulps on |x| < 7
 F32_REL_TOL = 1e-5     # the staged backward of a square dist: float32 fill
                        # and product, the same arithmetic as its reference
+K4_REL_TOL = 1e-5     # K4 vs its plain version: the same bf16-rounded data
+                      # times exact signs, float32 sums in another order
+K5_REL_TOL = 1e-6     # K5 vs its plain version: the same products (exact in
+                      # float32) summed in the same order; expected bitwise
+COO_REL_TOL = 1e-4    # two float32 products of 20000-term sums in other
+                      # orders (index_put_ accumulates with atomics)
 PEAK_BF16 = 989e12     # H100 SXM dense bf16 FLOP/s at 700 W (data sheet)
+PEAK_F32 = 67e12       # H100 SXM float32 FLOP/s outside the tensor cores
 PEAK_BYTES = 3.35e12   # H100 SXM HBM3 bytes/s
+D3, M3, N3, K3_NNZ = 1024, 65536, 2048, 8   # run_all.py config 3
+R4, C4, D4, NNZ4 = 20000, 10000, 512, 1_000_000   # run_all.py config 4
+KERNEL_NAMES = ("fused_sketch_T_kernel", "fused_sketch_kernel",
+                "fill_block_kernel", "saso_sketch_kernel",
+                "saso_reduce_kernel", "ell_spmm_kernel")
 
 
 def check(cond, msg):
@@ -98,13 +127,276 @@ def time_ms(fn, reps=5, warmup=1):
     return statistics.median(times)
 
 
-def bound(flops, nbytes):
-    """(least ms, what bounds it): the operations at the bf16 tensor-core
-    peak against each input byte read once and each output byte written
-    once at the memory rate."""
-    ops_ms, bytes_ms = flops / PEAK_BF16 * 1e3, nbytes / PEAK_BYTES * 1e3
+def bound(flops, nbytes, peak=PEAK_BF16):
+    """(least ms, what bounds it): the operations at their peak rate (the
+    bf16 tensor cores unless given) against each input byte read once and
+    each output byte written once at the memory rate."""
+    ops_ms, bytes_ms = flops / peak * 1e3, nbytes / PEAK_BYTES * 1e3
     return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms,
                                                               "bytes")
+
+
+def entry(name, fn, src, line, launches, err, ms, plain, bnd, lib):
+    """One kernel's object of the kernels line: the kernel ``fn`` in
+    csrc/<src>.cu replaces randblas_tpu/ops/<src>.py:<line>."""
+    return {"name": f"{fn} ({name})", "route": "cuda",
+            "source": f"randblas_tpu_torch/csrc/{src}.cu",
+            "replaces": f"randblas_tpu/ops/{src}.py:{line}",
+            "launches": launches, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain, "bound_ms": bnd[0], "bound_by": bnd[1],
+            "library_ms": lib}
+
+
+def sparse_paths(rt, dev, drive, card):
+    """Phase 7: the paths of the sparse-sign operators (K4) and of sparse
+    data (K5) at run_all.py's config 3 and 4 sizes, the kernels' edge cases
+    against their plain versions (each launched twice and compared bit for
+    bit), and their times. Returns the kernels-line entries of K4 and K5."""
+    from randblas_tpu_torch import skge
+    from randblas_tpu_torch.ops import ell_spmm as ell
+    from randblas_tpu_torch.ops import saso_sketch as saso
+    from randblas_tpu_torch.sparse_data import ELLMatrix
+
+    # -- (e) config 3: a SASO sketch of dense data, filled on the card ----
+    A3 = torch.from_numpy(np.random.default_rng(2).standard_normal(
+        (M3, N3), dtype=np.float32)).to(dev)
+    S3 = rt.SparseSkOp(rt.SparseDist(D3, M3, vec_nnz=K3_NNZ),
+                       rt.RNGState.from_key(3))
+    B3, e_launches = drive("(e) SASO sketch, run_all.py config 3",
+                           lambda: rt.sketch_general(S3, A3), {"K4": 1})
+    check(skge.route_counts == {"sparse_saso_kernel": 1},
+          f"(e) routes {dict(skge.route_counts)}")
+    check(B3.shape == (D3, N3) and B3.dtype == torch.float32,
+          f"(e) B is {tuple(B3.shape)} {B3.dtype}")
+    check(bool(torch.isfinite(B3).all()), "(e) non-finite values")
+    s3 = S3.filled(dev)
+    idx3 = s3.rows.reshape(M3, K3_NNZ)
+    sgn3 = s3.vals.reshape(M3, K3_NNZ)
+    B3_plain = saso.saso_sketch_reference(idx3, sgn3, A3, D3)
+    S3_dense = s3.materialize()
+    torch.cuda.synchronize()
+    k4_abs, k4_rel = abs_err(B3, B3_plain), rel_err(B3, B3_plain)
+    check(k4_rel <= K4_REL_TOL, f"(e) K4 vs plain: {k4_rel}")
+    e_f32 = rel_err(B3, S3_dense @ A3)
+    check(e_f32 <= STAGED_REL_TOL, f"(e) K4 vs float32 product: {e_f32}")
+    print(f"(e) K4 vs plain: max abs err {k4_abs:.4g}, normalised "
+          f"{k4_rel:.3g} <= {K4_REL_TOL}; vs the float32 densified product "
+          f"{e_f32:.3g} <= {STAGED_REL_TOL}")
+    del B3_plain
+
+    # -- (e') the transposed full route: a right sketch by a tall SASO ----
+    A3r = A3.T.contiguous()          # (2048, 65536): the data of (e')
+    S3t = rt.SparseSkOp(rt.SparseDist(M3, D3, vec_nnz=K3_NNZ),
+                        rt.RNGState.from_key(4))
+    Be, _ = drive("(e') right sketch by a tall SASO",
+                  lambda: rt.sketch_general(S3t, A3r, side="right"),
+                  {"K4": 1})
+    check(skge.route_counts == {"sparse_saso_kernel": 1},
+          f"(e') routes {dict(skge.route_counts)}")
+    check(Be.shape == (N3, D3), f"(e') output {tuple(Be.shape)}")
+    st = S3t.filled(dev)
+    Be_plain = saso.saso_sketch_reference(
+        st.cols.reshape(M3, K3_NNZ), st.vals.reshape(M3, K3_NNZ), A3r.T,
+        D3).T
+    ep_rel = rel_err(Be, Be_plain)
+    ep_f32 = rel_err(Be, A3r @ st.materialize())
+    check(ep_rel <= K4_REL_TOL, f"(e') K4 vs plain: {ep_rel}")
+    check(ep_f32 <= STAGED_REL_TOL, f"(e') vs float32 product: {ep_f32}")
+    print(f"(e') K4 on the column-major view vs plain: normalised "
+          f"{ep_rel:.3g} <= {K4_REL_TOL}; vs float32 {ep_f32:.3g}")
+    del Be, Be_plain, st
+
+    # -- K4 edge cases, each launched twice ------------------------------
+    def k4_case(name, idx, sgn, a, d, alpha=1.0):
+        n0 = saso.saso_sketch.launches
+        got = saso.saso_sketch(idx, sgn, a, d, alpha)
+        again = saso.saso_sketch(idx, sgn, a, d, alpha)
+        want = saso.saso_sketch_reference(idx, sgn, a, d, alpha)
+        torch.cuda.synchronize()
+        check(saso.saso_sketch.launches == n0 + 2, f"K4 {name}: launches")
+        check(torch.equal(got, again), f"K4 {name}: repeat not bitwise")
+        err = rel_err(got, want)
+        check(err <= K4_REL_TOL, f"K4 {name}: rel err {err}")
+        print(f"K4 {name}: normalised err {err:.3g} <= {K4_REL_TOL}; "
+              "repeat bitwise equal")
+
+    def structure(d, m, k, key):
+        s = rt.SparseSkOp(rt.SparseDist(d, m, vec_nnz=k),
+                          rt.RNGState.from_key(key)).filled(dev)
+        return s.rows.reshape(m, k), s.vals.reshape(m, k)
+
+    k4_case("config 3", idx3, sgn3, A3, D3)
+    k4_case("ragged d=1000 m=60001 n=777", *structure(1000, 60001, 8, 5),
+            A3[:60001, :777], 1000)
+    k4_case("k=1 d=513 n=7", *structure(513, 4096, 1, 6),
+            A3[:4096, :7].contiguous(), 513)
+    k4_case("k=3 d=60 n=33", *structure(60, 500, 3, 7),
+            A3[:500, :33].contiguous(), 60)
+    k4_case("k=16 d=1000 n=129", *structure(1000, 2048, 16, 8),
+            A3[:2048, :129].contiguous(), 1000)
+    k4_case("alpha=-0.75", *structure(256, 2048, 8, 9),
+            A3[:2048, :64].contiguous(), 256, alpha=-0.75)
+    pad_idx, pad_sgn = structure(300, 5000, 8, 10)
+    pad_idx = pad_idx.clone()
+    pad_idx[100:900] = -1
+    k4_case("padding columns (-1)", pad_idx, pad_sgn,
+            A3[:5000, :96].contiguous(), 300)
+    k4_case("bf16 data", idx3, sgn3, A3[:, :256].to(torch.bfloat16), D3)
+    k4_case("column-major data", *structure(700, 3000, 8, 11),
+            A3r[:100, :3000].T, 700)
+    k4_case("d=1620 at k=8 (the shared-memory limit)",
+            *structure(1620, 8192, 8, 12), A3[:8192, :64].contiguous(), 1620)
+
+    # -- (f) config 4: sketch_sparse of COO data from the left ------------
+    rng = np.random.default_rng(3)
+    rows4 = rng.integers(0, R4, NNZ4)
+    cols4 = rng.integers(0, C4, NNZ4)
+    vals4 = rng.normal(size=NNZ4).astype(np.float32)
+    coo = rt.COOMatrix.from_arrays(R4, C4, rows4, cols4, vals4, device=dev)
+    S4 = rt.DenseSkOp(rt.DenseDist(D4, R4), rt.RNGState.from_key(5))
+    B4, _ = drive("(f) sketch_sparse of COO data, run_all.py config 4",
+                  lambda: rt.sketch_sparse(S4, coo, side="left"), {})
+    dense4 = coo.to_dense()
+    f_rel = rel_err(B4, S4.materialize(device=dev) @ dense4)
+    check(B4.shape == (D4, C4) and f_rel <= COO_REL_TOL, f"(f) {f_rel}")
+    print(f"(f) vs the float32 dense product: normalised {f_rel:.3g} <= "
+          f"{COO_REL_TOL}")
+    del B4
+
+    # -- (g) config 4b: the same data as a word-major BlockedELL ----------
+    t0 = time.perf_counter()
+    bell = ELLMatrix.from_coo(coo).blocked(word_major=4)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    table_bytes = (bell.local_cols.numel() + bell.vals.numel()) * 4
+    entries = int((bell.local_cols >= 0).sum())
+    print(f"(g) BlockedELL set-up on the host: {setup_s:.3f} s; n_kblocks "
+          f"{bell.n_kblocks}, bw {bell.bw}, tables {table_bytes / 1e6:.1f} MB "
+          f"for {entries} entries, overflow {bell.ovf_nnz}")
+    S4b = rt.DenseSkOp(rt.DenseDist(C4, D4), rt.RNGState.from_key(6))
+    Bg, g_launches = drive(
+        "(g) right sketch of a word-major BlockedELL, config 4b",
+        lambda: rt.sketch_sparse(S4b, bell, side="right"), {"K5": 1})
+    check(Bg.shape == (R4, D4), f"(g) output {tuple(Bg.shape)}")
+    check(bool(torch.isfinite(Bg).all()), "(g) non-finite values")
+    blk = S4b.materialize(device=dev)           # (10000, 512), natural rows
+    Bg_plain = ell.blocked_ell_reference(bell, blk, b_order="natural")
+    torch.cuda.synchronize()
+    k5_abs, k5_rel = abs_err(Bg, Bg_plain), rel_err(Bg, Bg_plain)
+    check(k5_rel <= K5_REL_TOL, f"(g) K5 vs plain: {k5_rel}")
+    g_f32 = rel_err(Bg, dense4 @ blk)
+    check(g_f32 <= STAGED_REL_TOL, f"(g) vs float32 product: {g_f32}")
+    print(f"(g) K5 vs plain: max abs err {k5_abs:.4g}, normalised "
+          f"{k5_rel:.3g} <= {K5_REL_TOL} (bitwise: "
+          f"{torch.equal(Bg, Bg_plain)}); vs the float32 product "
+          f"{g_f32:.3g} <= {STAGED_REL_TOL}")
+    Bc, _ = drive("(g) the same right sketch of the COO data",
+                  lambda: rt.sketch_sparse(S4b, coo, side="right"),
+                  {"K5": 1})
+    c_rel = rel_err(Bc, Bg)
+    check(c_rel <= K4_REL_TOL, f"(g) COO route vs BlockedELL: {c_rel}")
+    print(f"(g) the COO data through the cached BlockedELL vs the "
+          f"word-major BlockedELL: normalised {c_rel:.3g} <= {K4_REL_TOL}")
+    del Bc, Bg_plain, dense4
+
+    # -- K5 edge cases ----------------------------------------------------
+    def k5_case(name, bell_c, b, alpha=1.0, order="storage"):
+        n0 = ell.blocked_ell_matmul.launches
+        got = ell.blocked_ell_matmul(bell_c, b, alpha, b_order=order)
+        again = ell.blocked_ell_matmul(bell_c, b, alpha, b_order=order)
+        want = ell.blocked_ell_reference(bell_c, b, alpha, order)
+        torch.cuda.synchronize()
+        check(ell.blocked_ell_matmul.launches == n0 + 2,
+              f"K5 {name}: launches")
+        # the COO overflow pass sums with atomics: bitwise only without it
+        repeat = torch.equal(got, again)
+        check(repeat or bell_c.ovf_nnz, f"K5 {name}: repeat not bitwise")
+        err = rel_err(got, want)
+        check(err <= K5_REL_TOL, f"K5 {name}: rel err {err}")
+        print(f"K5 {name}: normalised err {err:.3g} <= {K5_REL_TOL}; "
+              f"repeat bitwise equal: {repeat}")
+
+    k5_case("config 4b", bell, blk, order="natural")
+    k5_case("word-major in storage order", bell,
+            ell.to_word_major_rows(blk, 4, C4))
+    rng = np.random.default_rng(7)
+    small = rt.COOMatrix.from_arrays(
+        3000, 5000, rng.integers(0, 3000, 200_000),
+        rng.integers(0, 5000, 200_000),
+        rng.normal(size=200_000).astype(np.float32), device=dev)
+    e_small = ELLMatrix.from_coo(small)
+    B_small = torch.from_numpy(rng.standard_normal(
+        (5000, 1100), dtype=np.float32)).to(dev)
+    plain_bell = e_small.blocked()
+    k5_case("repeated (row, column), n=1100 (3 column chunks)", plain_bell,
+            B_small)
+    k5_case("ragged n=77, alpha=-0.5", plain_bell,
+            B_small[:, :77].contiguous(), alpha=-0.5)
+    k5_case("bw_cap=2 overflow", e_small.blocked(bw_cap=2), B_small[:, :256])
+    k5_case("word_major, bw_cap=1 overflow",
+            e_small.blocked(word_major=4, bw_cap=1), B_small[:, :64],
+            order="natural")
+    k5_case("bf16 B", plain_bell, B_small[:, :128].to(torch.bfloat16))
+    del small, e_small, B_small, plain_bell
+
+    # -- times ------------------------------------------------------------
+    k4_ms = time_ms(lambda: saso.saso_sketch(idx3, sgn3, A3, D3))
+    k4_plain_ms = time_ms(
+        lambda: saso.saso_sketch_reference(idx3, sgn3, A3, D3), reps=3)
+    e_ms = time_ms(lambda: rt.sketch_general(S3, A3))
+    fill_ms = time_ms(lambda: S3.filled(dev))
+    ep_ms = time_ms(lambda: rt.sketch_general(S3t, A3r, side="right"))
+    S3_csr = S3_dense.to_sparse_csr()
+    k4_lib_ms = time_ms(lambda: torch.sparse.mm(S3_csr, A3))
+    S3_bf, A3_bf = S3_dense.to(torch.bfloat16), A3.to(torch.bfloat16)
+    k4_mm_ms = time_ms(lambda: torch.matmul(S3_bf, A3_bf))
+    del S3_csr, S3_bf, A3_bf, S3_dense, A3r
+    k5_ms = time_ms(lambda: ell.blocked_ell_matmul(bell, blk,
+                                                   b_order="natural"))
+    k5_plain_ms = time_ms(lambda: ell.blocked_ell_reference(
+        bell, blk, b_order="natural"), reps=3)
+    g_ms = time_ms(lambda: rt.sketch_sparse(S4b, bell, side="right"))
+    gc_ms = time_ms(lambda: rt.sketch_sparse(S4b, coo, side="right"))
+    f_ms = time_ms(lambda: rt.sketch_sparse(S4, coo, side="left"))
+    coo_csr = torch.sparse_coo_tensor(
+        torch.stack([coo.rows.long(), coo.cols.long()]), coo.vals,
+        (R4, C4)).coalesce().to_sparse_csr()
+    k5_lib_ms = time_ms(lambda: torch.sparse.mm(coo_csr, blk))
+    del coo_csr
+
+    f32 = 4
+    k4_bound = bound(2.0 * K3_NNZ * M3 * N3,
+                     (M3 * N3 + D3 * N3) * f32 + K3_NNZ * M3 * 8, PEAK_F32)
+    k5_bound = bound(2.0 * entries * D4,
+                     table_bytes + (C4 * D4 + R4 * D4) * f32, PEAK_F32)
+    for name, ms in (
+            ("K4 saso_sketch wrapper, config 3", k4_ms),
+            ("K4 plain (bf16 round + one index_add_ per slot)", k4_plain_ms),
+            ("(e) sketch_general, config 3 (Fisher-Yates fill + K4)", e_ms),
+            ("(e) the Fisher-Yates fill alone, on the card", fill_ms),
+            ("(e') right sketch by the tall SASO (fill + K4)", ep_ms),
+            ("torch.sparse.mm, S3 as CUDA CSR, float32 A3", k4_lib_ms),
+            ("bf16 torch.matmul on the densified S3", k4_mm_ms),
+            ("K5 blocked_ell_matmul, config 4b", k5_ms),
+            ("K5 plain (one gather pass per slot)", k5_plain_ms),
+            ("(g) sketch_sparse of the BlockedELL (fill + K5)", g_ms),
+            ("(g) sketch_sparse of the COO data, conversion cached", gc_ms),
+            ("(f) sketch_sparse of the COO data from the left", f_ms),
+            ("torch.sparse.mm, the data as CUDA CSR, float32 block",
+             k5_lib_ms)):
+        print(f"time {name}: {ms:.3f} ms [{card}]")
+    print(f"set-up: BlockedELL.from_ell (with ELLMatrix.from_coo) on the host "
+          f"{setup_s:.3f} s [{card}]")
+    print(f"bounds: K4 {k4_bound[0]:.4f} ms ({k4_bound[1]}), K5 "
+          f"{k5_bound[0]:.4f} ms ({k5_bound[1]}), at {PEAK_F32 / 1e12:.0f} "
+          f"TFLOP/s float32 and {PEAK_BYTES / 1e12:.2f} TB/s")
+
+    # launches: K4 on path (e), K5 on path (g)
+    return [entry("K4", "saso_sketch_kernel", "saso_sketch", 67,
+                  e_launches["K4"], k4_abs, k4_ms, k4_plain_ms, k4_bound,
+                  k4_lib_ms),
+            entry("K5", "ell_spmm_kernel", "ell_spmm", 209, g_launches["K5"],
+                  k5_abs, k5_ms, k5_plain_ms, k5_bound, k5_lib_ms)]
 
 
 def main():
@@ -115,7 +407,9 @@ def main():
     import randblas_tpu_torch as rt
     from randblas_tpu_torch import skge
     from randblas_tpu_torch.ops import _build
+    from randblas_tpu_torch.ops import ell_spmm as ell
     from randblas_tpu_torch.ops import fused_sketch as fs
+    from randblas_tpu_torch.ops import saso_sketch as saso
 
     dev = torch.device("cuda")
     card = sh("nvidia-smi", "--query-gpu=name,power.limit",
@@ -133,18 +427,20 @@ def main():
           f"(nvcc {_build.build_seconds or 0.0:.1f} s)")
     kernel = None
     for line in (_build.build_log or "").splitlines():
-        name = re.search(r"(fused_sketch_T_kernel|fused_sketch_kernel|"
-                         r"fill_block_kernel)I(.+?)EEv", line)
-        if name:
-            kernel = f"{name.group(1)}[{name.group(2)}]"
-        elif "registers" in line or "spill" in line:
+        if "registers" in line or "spill" in line:
             print("  ptxas:", kernel, line.strip())
+            continue
+        name = next((k for k in KERNEL_NAMES if k in line), None)
+        if name:
+            args = re.search(name + r"I(.+?)EEv", line)
+            kernel = f"{name}[{args.group(1)}]" if args else name
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
     counters = {"K1": fs.fused_sketch, "K2": fs.fused_sketch_colmajor,
-                "K3": fs.fill_block}
+                "K3": fs.fill_block, "K4": saso.saso_sketch,
+                "K5": ell.blocked_ell_matmul}
 
     def reset():
         for c in counters.values():
@@ -156,7 +452,9 @@ def main():
         return {k: c.launches for k, c in counters.items()}
 
     def drive(name, fn, expect):
-        """Run one path with the counts at 0, and check its launches."""
+        """Run one path with the counts at 0, and check its launches (the
+        kernels ``expect`` does not name must not launch)."""
+        expect = {k: expect.get(k, 0) for k in counters}
         reset()
         out = fn()
         got = counts()
@@ -456,24 +754,22 @@ def main():
           f"({k3_bound[1]}), at {PEAK_BF16 / 1e12:.0f} TFLOP/s bf16 and "
           f"{PEAK_BYTES / 1e12:.2f} TB/s")
 
-    def entry(name, fn, line, launches, err, ms, plain, bnd, lib):
-        return {"name": f"{fn} ({name})", "route": "cuda",
-                "source": "randblas_tpu_torch/csrc/fused_sketch.cu",
-                "replaces": f"randblas_tpu/ops/fused_sketch.py:{line}",
-                "launches": launches, "max_abs_err": err, "ms": ms,
-                "plain_ms": plain, "bound_ms": bnd[0], "bound_by": bnd[1],
-                "library_ms": lib}
-
     # launches: K1 on the main path, K2 on its backward pass (a), K3 on the
     # staged use_kernel_fill run
     kernels = [
-        entry("K1", "fused_sketch_kernel", 127, main_launches["K1"], k1_abs,
-              k1_ms, plain_ms, k1_bound, k1_lib_ms),
-        entry("K2", "fused_sketch_T_kernel", 366, grad_launches["K2"],
-              k2_abs, k2_ms, k2_plain_ms, k2_bound, k2_lib_ms),
-        entry("K3", "fill_block_kernel", 446, staged_launches["K3"], k3_err,
-              k3_ms, k3_plain_ms, k3_bound, None),
+        entry("K1", "fused_sketch_kernel", "fused_sketch", 127,
+              main_launches["K1"], k1_abs, k1_ms, plain_ms, k1_bound,
+              k1_lib_ms),
+        entry("K2", "fused_sketch_T_kernel", "fused_sketch", 366,
+              grad_launches["K2"], k2_abs, k2_ms, k2_plain_ms, k2_bound,
+              k2_lib_ms),
+        entry("K3", "fill_block_kernel", "fused_sketch", 446,
+              staged_launches["K3"], k3_err, k3_ms, k3_plain_ms, k3_bound,
+              None),
     ]
+    del A, G, A2, S_c
+    torch.cuda.empty_cache()
+    kernels += sparse_paths(rt, dev, drive, card)
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

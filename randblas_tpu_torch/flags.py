@@ -1,9 +1,11 @@
 """Scoped overrides for the port's dispatch flags (counterpart of
 randblas_tpu/flags.py).
 
-The flags live in ``randblas_tpu_torch.skge``: ``use_fused`` ("auto" /
-True / False) and ``use_kernel_fill`` (False / True). ``flags(...)`` scopes
-an override and restores it on exit::
+The flags: ``use_fused`` ("auto" / True / False), ``use_kernel_fill``
+(False / True) and ``use_saso_kernel`` ("auto" / True / False) live in
+``randblas_tpu_torch.skge``; ``auto_blocked_ell`` ("auto" / True / False) in
+``randblas_tpu_torch.sparse_data.spmm``. ``flags(...)`` scopes an override
+and restores it on exit::
 
     with randblas_tpu_torch.flags(use_fused=False):
         B = randblas_tpu_torch.sketch(S, A)      # staged fill + GEMM
@@ -17,6 +19,8 @@ import importlib
 _FLAG_HOMES = {
     "use_fused": "randblas_tpu_torch.skge",
     "use_kernel_fill": "randblas_tpu_torch.skge",
+    "use_saso_kernel": "randblas_tpu_torch.skge",
+    "auto_blocked_ell": "randblas_tpu_torch.sparse_data.spmm",
 }
 
 

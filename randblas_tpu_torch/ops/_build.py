@@ -1,13 +1,17 @@
 """Build the CUDA kernels with nvcc and bind them with ctypes.
 
-The kernels' source (K1, K2 and K3) is ``csrc/fused_sketch.cu``, a file
-with a plain C interface (no PyTorch headers), so nvcc builds it in seconds:
+The kernels' sources are ``csrc/*.cu``: ``fused_sketch.cu`` (K1, K2, K3),
+``saso_sketch.cu`` (K4) and ``ell_spmm.cu`` (K5). Each has a plain C
+interface (no PyTorch headers), so nvcc builds it in seconds. The sources
+compile in parallel, one nvcc per source, and link into one library:
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
-         -Xcompiler -fPIC -o _build/libfused_sketch.so csrc/fused_sketch.cu
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
+         -Xcompiler -fPIC -Xptxas -v -c -o _build/<name>.o csrc/<name>.cu
+    nvcc -gencode arch=compute_90a,code=sm_90a -shared
+         -o _build/librandblas_kernels.so _build/*.o
 
 The library goes to ``randblas_tpu_torch/_build/`` (listed in .gitignore),
-keyed on a hash of the source and the flags, and is built at first use: a
+keyed on a hash of the sources and the flags, and is built at first use: a
 process that never launches a kernel never needs nvcc. nvcc is looked up as
 ``$CUDA_HOME/bin/nvcc``, then on ``PATH``, then under ``/usr/local/cuda``.
 """
@@ -24,12 +28,13 @@ import time
 from pathlib import Path
 
 _PKG = Path(__file__).resolve().parent.parent
-SOURCE = _PKG / "csrc" / "fused_sketch.cu"
+SOURCES = tuple(sorted((_PKG / "csrc").glob("*.cu")))
 BUILD_DIR = _PKG / "_build"
-LIBRARY = BUILD_DIR / "libfused_sketch.so"
-_STAMP = BUILD_DIR / "libfused_sketch.sha256"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+LIBRARY = BUILD_DIR / "librandblas_kernels.so"
+_STAMP = BUILD_DIR / "librandblas_kernels.sha256"
+_ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*_ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+              "-Xptxas", "-v")
 
 # nvcc's output of this process's build (ptxas registers, shared memory and
 # spills per kernel), and its wall time in seconds; None when the library
@@ -57,9 +62,20 @@ def _nvcc() -> str:
 
 
 def _digest() -> str:
-    h = hashlib.sha256(SOURCE.read_bytes())
+    h = hashlib.sha256()
+    for src in SOURCES:
+        h.update(src.name.encode() + b"\0" + src.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return h.hexdigest()
+
+
+def _run_all(cmds):
+    """Run the commands at once; (exit codes, outputs) in order."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    outs = [p.communicate()[0] for p in procs]
+    return [p.returncode for p in procs], outs
 
 
 def _ensure_built() -> Path:
@@ -69,18 +85,30 @@ def _ensure_built() -> Path:
             and _STAMP.read_text().strip() == digest:
         return LIBRARY
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = BUILD_DIR / f"libfused_sketch.{os.getpid()}.tmp.so"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)]
+    nvcc, pid = _nvcc(), os.getpid()
+    objs = [BUILD_DIR / f"{src.stem}.{pid}.o" for src in SOURCES]
+    tmp = BUILD_DIR / f"librandblas_kernels.{pid}.tmp.so"
+    compiles = [[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(src)]
+                for src, o in zip(SOURCES, objs)]
+    link = [nvcc, *_ARCH, "-shared", "-o", str(tmp), *map(str, objs)]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    build_seconds = time.perf_counter() - t0
-    build_log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(
-            f"nvcc failed (exit {proc.returncode}): {' '.join(cmd)}\n"
-            f"{build_log}")
-    os.replace(tmp, LIBRARY)
+    try:
+        codes, outs = _run_all(compiles)
+        if not any(codes):
+            (code,), (out,) = _run_all([link])
+            codes, outs, compiles = codes + [code], outs + [out], \
+                compiles + [link]
+        build_seconds = time.perf_counter() - t0
+        build_log = "".join(outs)
+        for code, cmd, out in zip(codes, compiles, outs):
+            if code != 0:
+                tmp.unlink(missing_ok=True)
+                raise RuntimeError(
+                    f"nvcc failed (exit {code}): {' '.join(cmd)}\n{out}")
+        os.replace(tmp, LIBRARY)
+    finally:
+        for o in objs:
+            o.unlink(missing_ok=True)
     _STAMP.write_text(digest + "\n")
     return LIBRARY
 
@@ -100,6 +128,16 @@ def _bind(lib):
         c_void_p, c_int64, c_int64, c_int, ctypes.c_uint64, words, c_int,
         c_int, c_void_p]
     lib.rbt_fill_block.restype = c_int
+    lib.rbt_saso_sketch.argtypes = [
+        c_void_p, c_int, c_int64, c_int64, c_void_p, c_void_p, c_int64,
+        c_void_p, c_void_p, c_int64, c_int64, c_int64, c_int, c_int, c_int64,
+        ctypes.c_float, c_void_p]
+    lib.rbt_saso_sketch.restype = c_int
+    lib.rbt_ell_spmm.argtypes = [
+        c_void_p, c_void_p, c_int64, c_int64, c_int, c_int, c_void_p,
+        c_int64, c_int64, c_void_p, c_int64, c_int64, c_int, c_int64,
+        ctypes.c_float, c_void_p]
+    lib.rbt_ell_spmm.restype = c_int
     lib.rbt_error_string.argtypes = [c_int]
     lib.rbt_error_string.restype = ctypes.c_char_p
     return lib

@@ -1,12 +1,12 @@
 """sketch_general: the primary sketching entry point (counterpart of
-randblas_tpu/skge.py, dense operators).
+randblas_tpu/skge.py, dense and sparse-sign operators).
 
     left:  B_new = alpha * op_s(submat(S)) @ op_a(A) + beta * B
     right: B_new = alpha * op_a(A) @ op_s(submat(S)) + beta * B
 
 A and B are 2-D tensors (row-major, shape == math shape); S is a
-DenseSkOp. Routes, tried in this order and each counted in
-``route_counts``:
+DenseSkOp or a SparseSkOp. Dense routes, tried in this order and each
+counted in ``route_counts``:
 
 - ``left_fused``: a left NoTrans sketch by a lazy RowMajor-natural operator
   goes through the fused kernel K1 (ops/fused_sketch.py), which never
@@ -31,6 +31,20 @@ distribution transposes to itself, so the identity behind the left-Trans
 and right routes fails for it and they leave it to the staged route. The
 fused routes are differentiable in A (ops/fused_sketch.py).
 
+Sparse-sign operators (SparseSkOp) take ``_sparse_left_apply``; a right
+sketch is the left sketch of the transposes. Its routes, counted the same
+way:
+
+- ``sparse_saso_kernel``: the full wide SASO, and the transposed full tall
+  SASO (whose transpose is wide), through K4 (ops/saso_sketch.py), which
+  reads the data once. On CUDA tensors ``use_saso_kernel="auto"`` takes it
+  whenever ``saso_sketch_supported`` holds and the data is float32;
+  ``True`` also runs K4's plain version on the CPU; ``False`` never.
+- ``sparse_fixed_nnz``: the same operators by one ``index_add_`` per slot.
+- ``sparse_row_gather``: the full tall SASO, and the transposed full wide
+  one: each output row gathers k data rows.
+- ``sparse_coo``: any other block, or triplets not in the fill's order.
+
 No dispatch gate here comes from a TPU measurement; profit gates for the
 H100 are ROADMAP.md item 13.
 """
@@ -42,8 +56,9 @@ from typing import Optional
 
 import torch
 
-from .base import Op, Side, dims_before_op, require
+from .base import MajorAxis, Op, Side, dims_before_op, require
 from .dense import DenseDist, DenseSkOp
+from .sparse import SparseSkOp
 
 # Fused-kernel dispatch policy: "auto" takes a fused route (K1 or K2) on
 # CUDA tensors whenever the call qualifies; True forces the fused routes
@@ -56,6 +71,11 @@ use_fused = "auto"
 # (its plain version on the CPU). Uniform values are bitwise equal either
 # way; Gaussian values differ by about one ulp (signed-view u01).
 use_kernel_fill = False
+
+# SASO kernel (K4) dispatch policy: "auto" takes K4 on CUDA tensors whenever
+# the call qualifies; True also runs its plain version on the CPU; False
+# always takes the fixed-nnz route.
+use_saso_kernel = "auto"
 
 # how many calls took each route (see the module docstring)
 route_counts = collections.Counter()
@@ -174,8 +194,65 @@ def _right_fused_or_none(S: DenseSkOp, a_mat, blk, op_s: Op, alpha):
                         cols_s=cols_s, ro_s=ro_s, co_s=co_s).T
 
 
+def _saso_kernel_ok(d: int, m: int, k: int, b: torch.Tensor) -> bool:
+    """Whether K4 takes a (d, m) wide-SASO product with k slots per column
+    on b: its shape gate and float32 data, on a CUDA tensor under "auto"
+    or anywhere under True."""
+    from .ops.saso_sketch import saso_sketch_supported
+    return (use_saso_kernel is not False
+            and saso_sketch_supported(d, m, k, b.shape[1])
+            and b.dtype == torch.float32
+            and (use_saso_kernel is True or b.is_cuda))
+
+
+def _fixed_nnz(idx, vals, b, d, alpha):
+    """(route, alpha * S @ b) for a wide SASO given per data column:
+    K4 when it takes the call, else one index_add_ per slot."""
+    from .ops.coo_apply import fixed_nnz_left_apply
+    from .ops.saso_sketch import saso_sketch
+    if _saso_kernel_ok(d, idx.shape[0], idx.shape[1], b):
+        return "sparse_saso_kernel", saso_sketch(idx, vals, b, d, alpha)
+    return "sparse_fixed_nnz", fixed_nnz_left_apply(idx, vals, b, d, alpha)
+
+
+def _sparse_left_apply(S: SparseSkOp, d: int, m: int, ro_s: int, co_s: int,
+                       op_s: Op, b_mat: torch.Tensor, alpha):
+    """(route, alpha * op_s(submat(S)) @ b_mat) for a sparse-sign operator,
+    filled on b_mat's device. A transposed operator swaps the COO index
+    roles and the offsets."""
+    from .ops.coo_apply import coo_left_apply_auto, row_gather_apply
+
+    s = S.filled(b_mat.device)
+    k = S.dist.vec_nnz
+    saso = s.canonical and S.dist.major_axis == MajorAxis.Short \
+        and ro_s == 0 and co_s == 0
+    wide, tall = S.n_rows < S.n_cols, S.n_rows > S.n_cols
+    if saso and op_s == Op.NoTrans and (d, m) == S.shape:
+        if wide:   # k entries in each data column
+            return _fixed_nnz(s.rows.reshape(m, k), s.vals.reshape(m, k),
+                              b_mat, d, alpha)
+        if tall:   # k entries in each output row
+            return "sparse_row_gather", row_gather_apply(
+                s.cols.reshape(d, k), s.vals.reshape(d, k), b_mat, alpha)
+    if saso and op_s == Op.Trans and (m, d) == S.shape:
+        # the right sketch arrives here: S^T of a tall SASO is wide with k
+        # entries per column, S^T of a wide one has k per output row
+        if tall:
+            return _fixed_nnz(s.cols.reshape(m, k), s.vals.reshape(m, k),
+                              b_mat, d, alpha)
+        if wide:
+            return "sparse_row_gather", row_gather_apply(
+                s.rows.reshape(d, k), s.vals.reshape(d, k), b_mat, alpha)
+    rows, cols = s.rows, s.cols
+    if op_s == Op.Trans:
+        rows, cols = cols, rows
+        ro_s, co_s = co_s, ro_s
+    return "sparse_coo", coo_left_apply_auto(
+        rows, cols, s.vals.to(b_mat.dtype), b_mat, d, m, ro_s, co_s, alpha)
+
+
 def sketch_general(
-    S: DenseSkOp,
+    S,
     A: torch.Tensor,
     *,
     side="left",
@@ -191,7 +268,7 @@ def sketch_general(
     """Sketch a general dense matrix A from the left or right.
 
     Args:
-      S: sketching operator (DenseSkOp).
+      S: sketching operator (DenseSkOp or SparseSkOp).
       A: data matrix, shape = its stored (math) shape; op_a transposes.
       side: 'left'  -> B = alpha op_s(submat(S)) op_a(A) + beta B  (d x n)
             'right' -> B = alpha op_a(A) op_s(submat(S)) + beta B  (n x d)
@@ -203,11 +280,11 @@ def sketch_general(
 
     Returns B_new on A's device.
     """
-    if not isinstance(S, DenseSkOp):
+    if not isinstance(S, (DenseSkOp, SparseSkOp)):
         raise NotImplementedError(
-            f"{type(S).__name__}: only DenseSkOp is ported to "
-            "randblas_tpu_torch; sparse operators are ROADMAP.md Queue 1 "
-            "item 6 and SRHT/trig operators item 10")
+            f"{type(S).__name__}: randblas_tpu_torch sketches with DenseSkOp "
+            "and SparseSkOp; the SRHT/trig operators are ROADMAP.md Queue 1 "
+            "item 10")
     side = _as_side(side)
     op_s = _as_op(op_s)
     op_a = _as_op(op_a)
@@ -227,9 +304,12 @@ def sketch_general(
         rows_s, cols_s = dims_before_op(d, m, op_s)
         require(S.n_rows >= rows_s + ro_s, "S row range out of bounds")
         require(S.n_cols >= cols_s + co_s, "S column range out of bounds")
-        fused = _left_fused_or_none(S, a_mat, (rows_s, cols_s, ro_s, co_s),
-                                    op_s, alpha)
-        if fused is not None:
+        if isinstance(S, SparseSkOp):
+            route, prod = _sparse_left_apply(S, d, m, ro_s, co_s, op_s, a_mat,
+                                             alpha)
+        elif (fused := _left_fused_or_none(
+                S, a_mat, (rows_s, cols_s, ro_s, co_s), op_s,
+                alpha)) is not None:
             route, prod = fused
         else:
             require(use_fused is not True,
@@ -250,9 +330,17 @@ def sketch_general(
         rows_s, cols_s = dims_before_op(m, d, op_s)
         require(S.n_rows >= rows_s + ro_s, "S row range out of bounds")
         require(S.n_cols >= cols_s + co_s, "S column range out of bounds")
-        prod = _right_fused_or_none(S, a_mat, (rows_s, cols_s, ro_s, co_s),
-                                    op_s, alpha)
-        if prod is not None:
+        if isinstance(S, SparseSkOp):
+            # A @ op_s(S) = (op_s(S)^T @ A^T)^T: the flipped op folds the
+            # transpose into the index roles
+            flipped = Op.NoTrans if op_s == Op.Trans else Op.Trans
+            route, prod = _sparse_left_apply(S, d, m, ro_s, co_s, flipped,
+                                             a_mat.T, alpha)
+            route_counts[route] += 1
+            prod = prod.T
+        elif (prod := _right_fused_or_none(
+                S, a_mat, (rows_s, cols_s, ro_s, co_s), op_s,
+                alpha)) is not None:
             route_counts["right_fused"] += 1
         else:
             route_counts["right_staged"] += 1
@@ -269,6 +357,6 @@ def sketch_general(
     return prod
 
 
-def sketch(S: DenseSkOp, A: torch.Tensor, *, side="left") -> torch.Tensor:
+def sketch(S, A: torch.Tensor, *, side="left") -> torch.Tensor:
     """Convenience wrapper: plain S @ A (left) or A @ S (right)."""
     return sketch_general(S, A, side=side)
