@@ -44,7 +44,15 @@ after:
   conversion;
 
 and the staged route with ``use_kernel_fill``, which launches K3 once and
-no other kernel. Then it times each kernel, its plain version, a PyTorch
+no other kernel. For K1 and K2 it also prints the launch plan of the main
+path and of (b) (tiles, thread-block cluster, grid, contraction splits,
+how many times the operator is generated, and the card's
+cudaOccupancyMaxActiveClusters), whether ``cuobjdump -sass`` shows HGMMA
+(wgmma) in every K1/K2 instantiation, their cases at the edges of the
+cluster and the tiles in float32 and bf16 (each launched twice and compared
+bit for bit), path (d)'s peak device memory beside that of the same call
+handed a contiguous copy of A2^T, and one torch.profiler window over five
+main-path calls. Then it times each kernel, its plain version, a PyTorch
 library call on the same inputs (a yardstick the port never calls: bf16
 ``torch.matmul`` on the materialised operator for K1, K2 and K4, and
 ``torch.sparse.mm`` on a CUDA CSR tensor with float32 data for K4 and K5)
@@ -88,8 +96,9 @@ PEAK_BYTES = 3.35e12   # H100 SXM HBM3 bytes/s
 D3, M3, N3, K3_NNZ = 1024, 65536, 2048, 8   # run_all.py config 3
 R4, C4, D4, NNZ4 = 20000, 10000, 512, 1_000_000   # run_all.py config 4
 KERNEL_NAMES = ("fused_sketch_T_kernel", "fused_sketch_kernel",
-                "fill_block_kernel", "saso_sketch_kernel",
-                "saso_reduce_kernel", "ell_spmm_kernel")
+                "fused_sketch_reduce_kernel", "fill_block_kernel",
+                "saso_sketch_kernel", "saso_reduce_kernel", "ell_spmm_kernel")
+WGMMA_KERNELS = ("fused_sketch_kernel", "fused_sketch_T_kernel")
 
 
 def check(cond, msg):
@@ -134,6 +143,28 @@ def bound(flops, nbytes, peak=PEAK_BF16):
     ops_ms, bytes_ms = flops / peak * 1e3, nbytes / PEAK_BYTES * 1e3
     return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms,
                                                               "bytes")
+
+
+def sass_check(library):
+    """Whether each K1/K2 instantiation in the built library's SASS runs its
+    product on HGMMA (wgmma), by cuobjdump where the toolkit has it."""
+    from randblas_tpu_torch.ops import _build
+    tool = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    if not os.path.isfile(tool):
+        print("cuobjdump not found: HGMMA not checked")
+        return
+    sass = subprocess.run([tool, "-sass", str(library)], capture_output=True,
+                          text=True, check=True).stdout
+    found = {}
+    for block in sass.split("Function : ")[1:]:
+        head = block.split("\n", 1)[0]
+        name = next((k for k in WGMMA_KERNELS if k + "I" in head), None)
+        if name:
+            found.setdefault(name, []).append("HGMMA" in block)
+    for name in WGMMA_KERNELS:
+        got = found.get(name, [])
+        check(got and all(got), f"{name}: HGMMA missing in the SASS ({got})")
+        print(f"SASS: HGMMA in all {len(got)} instantiations of {name}")
 
 
 def entry(name, fn, src, line, launches, err, ms, plain, bnd, lib):
@@ -399,6 +430,47 @@ def sparse_paths(rt, dev, drive, card):
                   k5_abs, k5_ms, k5_plain_ms, k5_bound, k5_lib_ms)]
 
 
+def profile_main(rt, S, A, card):
+    """One torch.profiler window over five main-path calls: K1's device
+    time per call and the share of the window in which the card ran no
+    kernel, against the window's wall time with the profiler on and the
+    same five calls' wall time without it."""
+    from torch.profiler import ProfilerActivity, profile
+
+    def five_calls():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(5):
+            rt.sketch_general(S, A, side="left")
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e6
+
+    bare_us = five_calls()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        wall_us = five_calls()
+    def device_us(e):  # the name changed across PyTorch versions
+        t = getattr(e, "self_device_time_total", None)
+        return e.self_cuda_time_total if t is None else t
+
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_us = sum(device_us(e) for e in kernels)
+    k1_us = sum(device_us(e) for e in kernels
+                if "fused_sketch_kernel" in e.key
+                or "fused_sketch_reduce_kernel" in e.key)
+    if busy_us == 0:
+        print("profiler: the trace shows no device time; host share not "
+              "measured")
+        return
+    print(f"profiler, 5 main-path calls: K1 (with its split sum) "
+          f"{k1_us / 5e3:.3f} ms device time per call; device busy "
+          f"{busy_us / 1e3:.3f} ms of {wall_us / 1e3:.3f} ms wall with the "
+          f"profiler on (idle share {1 - busy_us / wall_us:.3f}), of "
+          f"{bare_us / 1e3:.3f} ms without it (idle share "
+          f"{max(0.0, 1 - busy_us / bare_us):.3f}) [{card}]")
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda.is_available() is False; "
@@ -425,9 +497,10 @@ def main():
     _build.load()
     print(f"build: {time.perf_counter() - t0:.1f} s "
           f"(nvcc {_build.build_seconds or 0.0:.1f} s)")
+    sass_check(_build.LIBRARY)
     kernel = None
     for line in (_build.build_log or "").splitlines():
-        if "registers" in line or "spill" in line:
+        if "Used" in line and "registers" in line or "spill" in line:
             print("  ptxas:", kernel, line.strip())
             continue
         name = next((k for k in KERNEL_NAMES if k in line), None)
@@ -519,6 +592,16 @@ def main():
     check(B.shape == (D, N) and B.dtype == torch.float32,
           f"B is {tuple(B.shape)} {B.dtype}")
     check(bool(torch.isfinite(B).all()), "B has non-finite values")
+    active = fs.max_active_clusters(dev)
+    for label, (d_p, m_p, n_p) in (("main path, K1", (D, M, N)),
+                                   ("(b) and (a)'s backward, K2", (M, D, N))):
+        plan = fs.launch_plan(d_p, m_p, n_p, 0, active)
+        print(f"plan {label} {d_p}x{m_p}@{m_p}x{n_p}: TI {plan.ti}, TN "
+              f"{plan.tn}, TK {plan.tk}, cluster {plan.cluster}, grid "
+              f"{plan.grid + (plan.splits,)} ({plan.splits} splits of "
+              f"{plan.split_steps} steps), regeneration factor {plan.regen}; "
+              f"cudaOccupancyMaxActiveClusters {active}")
+        check(plan.regen <= 2, f"{label}: S generated {plan.regen} times")
 
     def staged_fill():
         with rt.flags(use_fused=False, use_kernel_fill=True):
@@ -630,8 +713,12 @@ def main():
     def right():
         return rt.sketch_general(S2, A2, side="right", d=D2, ro_s=8, co_s=8)
 
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    mem0 = torch.cuda.memory_allocated()
     B2, _ = drive("(d) right sketch, run_all.py config 2", right,
                   {"K1": 1, "K2": 0, "K3": 0})
+    d_peak = torch.cuda.max_memory_allocated() - mem0
     check(skge.route_counts == {"right_fused": 1},
           f"(d) routes {dict(skge.route_counts)}")
     B2_ref = fs.fused_sketch_reference(transposed(S2), A2.T, rows_s=D2,
@@ -641,6 +728,18 @@ def main():
     print(f"(d) right route vs plain K1 on the transposed dist: normalised "
           f"{d_rel:.3g} <= {K1_REL_TOL}")
     del B2, B2_ref
+    # the same K1 call handed a contiguous copy of A2^T, as the route did
+    # before K1 read A through strides
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    mem0 = torch.cuda.memory_allocated()
+    fs.fused_sketch(transposed(S2), A2.T.contiguous(), rows_s=D2, cols_s=C2,
+                    ro_s=8, co_s=8)
+    torch.cuda.synchronize()
+    copy_peak = torch.cuda.max_memory_allocated() - mem0
+    print(f"(d) peak device memory above the inputs: {d_peak / 1e9:.3f} GB "
+          f"(K1 reads A2^T in place); with a contiguous copy of A2^T "
+          f"{copy_peak / 1e9:.3f} GB")
 
     wrap_t = op((M, D), state=wrap)
     k2_cases = [
@@ -662,6 +761,50 @@ def main():
     for name, S_k, A_k, kw, tol in k2_cases:
         case("K2", name, S_k, A_k, kw, tol,
              fs.fused_sketch_colmajor_reference)
+
+    # K1 and K2 at the edges of the cluster and the tiles, float32 and bf16,
+    # each launched twice on the same inputs: the sums must be bitwise
+    # repeatable (fixed order, no atomics)
+    def edge(kname, name, S_e, A_e, kw, tol):
+        wrapper, reference = (
+            (fs.fused_sketch, fs.fused_sketch_reference) if kname == "K1"
+            else (fs.fused_sketch_colmajor, fs.fused_sketch_colmajor_reference))
+        n_before = counters[kname].launches
+        got = wrapper(S_e, A_e, **kw)
+        again = wrapper(S_e, A_e, **kw)
+        want = reference(S_e, A_e, **kw)
+        torch.cuda.synchronize()
+        check(counters[kname].launches == n_before + 2,
+              f"{kname} {name}: launches")
+        check(torch.equal(got, again), f"{kname} {name}: repeat not bitwise")
+        err = rel_err(got, want)
+        check(err <= tol, f"{kname} {name}: rel err {err}")
+        plan = fs.launch_plan(kw["rows_s"], *A_e.shape,
+                              kw.get("ro_s", 0) % 4 if kname == "K2" else 0,
+                              active)
+        print(f"{kname} {name} {str(A_e.dtype)[6:]}: normalised err "
+              f"{err:.3g} <= {tol}; repeat bitwise equal; cluster "
+              f"{plan.cluster}, grid {plan.grid + (plan.splits,)}")
+
+    wide = torch.from_numpy(np.random.default_rng(4).standard_normal(
+        (2000, fs.TN * 16 + 1), dtype=np.float32)).to(dev)
+    edges = [
+        (f"n = TN*8+1 = {fs.TN * 8 + 1}", A[:3000, :fs.TN * 8 + 1],
+         dict(rows_s=300)),
+        (f"n = TN*16+1 = {fs.TN * 16 + 1}", wide, dict(rows_s=200)),
+        ("n < TN (n=100)", A[:2000, :100], dict(rows_s=256)),
+        ("d < TI (d=50)", A[:4096, :512], dict(rows_s=50)),
+        ("m < TK (m=40)", A[:40, :300], dict(rows_s=200)),
+        (f"all-phantom CTAs (n = 5 TN = {5 * fs.TN}: 5 column tiles in a "
+         "cluster of 8)", A[:1000, :5 * fs.TN], dict(rows_s=130)),
+    ]
+    for name, A_e, kw in edges:
+        for A_t, tol in ((A_e.contiguous(), K1_REL_TOL),
+                         (A_e.to(torch.bfloat16), BF16_REL_TOL)):
+            kw = dict(kw, cols_s=A_t.shape[0])
+            edge("K1", name, S, A_t, kw, tol)
+            edge("K2", name, S_c, A_t, dict(kw, ro_s=3), tol)
+    del wide
 
     # a square dist transposes to itself: its backward pass is staged
     S_sq = op((2048, 2048), key=9)            # square+Long: ColMajor
@@ -753,6 +896,7 @@ def main():
           f"{k2_bound[0]:.4f} ms ({k2_bound[1]}), K3 {k3_bound[0]:.4f} ms "
           f"({k3_bound[1]}), at {PEAK_BF16 / 1e12:.0f} TFLOP/s bf16 and "
           f"{PEAK_BYTES / 1e12:.2f} TB/s")
+    profile_main(rt, S, A, card)
 
     # launches: K1 on the main path, K2 on its backward pass (a), K3 on the
     # staged use_kernel_fill run

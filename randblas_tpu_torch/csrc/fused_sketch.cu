@@ -6,7 +6,7 @@
 // for a RowMajor-natural operator S whose element (i, c) is lane c % 4 of
 // Philox4x32-10 (or Threefry4x32-20) at counter seed + i * ctr_stride + c / 4
 // (the wrapper folds ro and co into the seed). S is generated panel by panel
-// into shared memory and fed to bf16 mma.sync with float32 accumulation; no
+// into shared memory and fed to bf16 wgmma with float32 accumulation; no
 // operator element is ever written to global memory.
 //
 // K2 fused_sketch_T_kernel replaces randblas_tpu/ops/fused_sketch.py:366
@@ -14,16 +14,16 @@
 // same product for a ColMajor-natural operator, whose element (i, c) is lane
 // i % 4 at counter seed + c * ctr_stride + i / 4 (ctr_stride from the true
 // parent height). It is K1 with another panel generator: one counter block
-// yields four consecutive ROWS of one operator column, stored into the
-// row-major shared panel as four 2-byte stores; a warp covers 32 adjacent
-// columns of one row quad, so each store instruction writes 64 contiguous
-// bytes of one panel row and meets no bank conflict. The mma fragments, the
-// data tile and the epilogue are K1's. An unaligned row offset arrives as
-// `shift` = ro % 4: the tile rows count from the previous counter boundary
-// and the epilogue stores row g at output row g - shift (the TPU kernel
-// generated extra rows and sliced them off outside). K2 carries the
-// ColMajor-natural left sketch, the left-Trans sketch onto a
-// ColMajor-natural transposed operator, and the backward pass of K1.
+// yields four consecutive ROWS of one operator column, stored as four 2-byte
+// stores; a warp covers 32 adjacent columns of one row quad, so each store
+// instruction writes 64 bytes of one 128-byte panel row and meets no bank
+// conflict. The pipeline, the data tile and the epilogue are K1's. An
+// unaligned row offset arrives as `shift` = ro % 4: the tile rows count from
+// the previous counter boundary and the epilogue stores tile row r at output
+// row r - shift (the TPU kernel generated extra rows and sliced them off
+// outside). K2 carries the ColMajor-natural left sketch, the left-Trans
+// sketch onto a ColMajor-natural transposed operator, and the backward pass
+// of K1.
 //
 // K3 fill_block_kernel replaces randblas_tpu/ops/fused_sketch.py::_kernel_fill
 // (reached through _fill_call / pallas_fill_block): generation only, a
@@ -36,26 +36,58 @@
 // sinf and cosf are the accurate versions: build without --use_fast_math).
 //
 // What bounds K1 and K2 on the H100, and what this design does about it:
-// - Generation, not the product. Each thread block owns one TI x TN output
-//   tile and loops over the whole contraction, so every block regenerates
-//   its TI x m operator panel: generation work is n / TN times the size of S
-//   (32x at n = 4096, TN = 128). Philox rounds, Box-Muller (logf, sqrtf and
-//   the sincospi polynomial) and counter carries are integer/FP32 pipe work
-//   that this simple kernel does not overlap with the tensor cores beyond
-//   what two resident blocks per SM give. Removing the regeneration (a wider
-//   TN, or generating each panel once and sharing it across a cluster) is
-//   later work. K2 does the same generation work per panel as K1 (TI x TK / 4
-//   counter blocks per step), yet measured 12-22% slower than K1 at equal
-//   flops on an H100 80GB HBM3 at 700 W (chip_smoke.py; PERF.md), with
-//   more spills under the same 128-register cap.
-// - The product runs on mma.sync m16n8k16 (bf16 in, f32 accumulate), not on
-//   wgmma/TMA; operands come from padded shared memory without ldmatrix.
-// - A is streamed once per output row tile (d / TI times); A's bytes are
-//   not the bound. K2's backward-pass shape (65536 output rows) rides 512
-//   row tiles on grid.y.
-// Sums are deterministic: no atomics, a fixed k order inside each block.
+// - Generation. The product alone is tensor-core work (2 d m n flops); the
+//   operator costs a Philox (or Threefry) block and two Box-Muller
+//   transforms (logf, sqrtf, the sincospi polynomial) per four elements on
+//   the integer and FP32 pipes. A CTA owns one TI x TN output tile and walks
+//   its range of the contraction, so a panel generated by one CTA alone
+//   would be generated again for every TN columns of the output. Here the
+//   CTAs of a thread-block cluster of C CTAs along n share each TI x TK
+//   panel: every CTA generates TI / C of its rows into its own shared
+//   memory, and one bulk copy per peer (cp.async.bulk shared::cta ->
+//   shared::cluster) places them in every other CTA of the cluster. S is
+//   generated ceil(ceil(n / TN) / C) times in all (once at n = 4096 with
+//   TN = 256 and C = 16).
+// - Overlap. Each CTA is warp-specialised. One producer warpgroup
+//   generates the panel rows. Two consumer warpgroups run
+//   wgmma.m64n256k16 (bf16 in, f32 accumulate, 64 operator rows each) on a
+//   ring of STAGES shared-memory stages; while a step's products run on the
+//   tensor cores, each consumer warpgroup converts its half of the next
+//   step's data tile to bf16 and loads the half after that by TMA.
+//   mbarriers order the ring: a stage's full barrier completes on the
+//   producers' arrival, both consumer warpgroups' arrivals and the peers'
+//   bulk-copy bytes; its empty barrier on one arrival from each consumer
+//   warpgroup of every CTA of the cluster (a CTA overwrites its share of
+//   the panel in every peer). setmaxnreg moves registers from the
+//   producers to the consumers' 128 accumulators.
+// - A's bytes. A is read once per output row tile (d / TI times) and
+//   reaches shared memory as float32 (or bf16) by TMA, half a tile per
+//   consumer warpgroup. Once generation is shared, these loads and the
+//   barriers alone take three quarters of K1's time at the main shape, and
+//   generation, conversion and products each add little on top
+//   (fused_ablation.py, PERF.md): the ring has two stages, all that 227 KB
+//   of shared memory hold with a float32 staging tile.
+// - Layouts. The panel is K-major with the 128-byte swizzle that the wgmma
+//   descriptors read (TK = 64 bf16 = one 128-byte row). The data tile is
+//   MN-major for row-major A (wgmma's transpose bit, so converting it is
+//   element-wise) and K-major for column-major A (the right route's A^T,
+//   read in place through its strides). A whose strides TMA cannot take is
+//   loaded element by element.
+// - Rounds. Clusters of 8 or 16 fill only 120 or 112 of the 132 SMs, and a
+//   grid of a few rounds of clusters leaves the card part idle in the last
+//   one. The launch plan (ops/fused_sketch.py::launch_plan: TI, TN, TK, C,
+//   the grid, the splits) then cuts the contraction into ranges on grid.z;
+//   fused_sketch_reduce_kernel adds their partial sums in split order. The
+//   launcher only checks the plan.
+// - A CTA whose columns lie past n still generates its share and joins
+//   every barrier: the cluster would deadlock otherwise.
+// Sums are deterministic: no atomics, a fixed k order inside each CTA and a
+// fixed split order.
 
 #include <cstdint>
+#include <type_traits>
+#include <cuda.h>
+#include <cudaTypedefs.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -234,11 +266,31 @@ __device__ __forceinline__ void gen4(const Seed& seed, uint64_t off,
 
 // ----------------------------------------------------------- K1, K2 ----
 
-constexpr int TI = 128;      // operator rows (output rows) per block
-constexpr int TN = 128;      // output columns per block
-constexpr int TK = 32;       // contraction step
-constexpr int THREADS = 256; // 8 warps: 2 (rows) x 4 (columns)
-constexpr int PAD = 8;       // bf16 padding per shared row (bank spread)
+constexpr int TI = 128;         // operator rows (output rows) per CTA
+constexpr int TN = 256;         // output columns per CTA
+constexpr int TK = 64;          // contraction step: one 128-byte bf16 row
+constexpr int STAGES = 2;       // ring of shared-memory stages
+constexpr int CONSUMERS = 256;  // warpgroups 0, 1: wgmma, 64 rows each
+constexpr int PRODUCERS = 128;  // warpgroup 2: the operator panel
+constexpr int THREADS = CONSUMERS + PRODUCERS;
+// registers per thread: 168 at entry (65536 / 384); 2 x 216 + 72 = 3 x 168
+constexpr int CONSUMER_REGS = 216;
+constexpr int PRODUCER_REGS = 72;
+constexpr int MAX_CLUSTER = 16;
+constexpr int ROW_BYTES = TK * 2;                  // 128
+constexpr int PANEL_BYTES = TI * ROW_BYTES;        // 16 KB
+constexpr int TILE_BYTES = TN * ROW_BYTES;         // 32 KB
+constexpr int STAGING_BYTES = TK * TN * 4;     // A's tile as TMA lands it
+constexpr int STAGE_BYTES = PANEL_BYTES + TILE_BYTES + STAGING_BYTES;
+// 1024 bytes of slack to align the swizzle atoms, the stages, then the
+// full, empty and two staged barriers: 230,464 of the 232,448 bytes a CTA
+// may have
+constexpr int SMEM_BYTES = 1024 + STAGES * STAGE_BYTES + 4 * STAGES * 8;
+// how the consumers read A: with plain loads, or from the staging tile
+// that TMA fills, laid out [k][n] (A row-major) or [n][k] (column-major)
+constexpr int kLoadDirect = 0;
+constexpr int kTmaRows = 1;
+constexpr int kTmaCols = 2;
 
 __device__ __forceinline__ uint32_t pack_bf16(__nv_bfloat16 lo,
                                               __nv_bfloat16 hi) {
@@ -251,163 +303,503 @@ __device__ __forceinline__ __nv_bfloat16 to_bf16(float x) {
 }
 __device__ __forceinline__ __nv_bfloat16 to_bf16(__nv_bfloat16 x) { return x; }
 
-__device__ __forceinline__ void mma_bf16(float c[4], const uint32_t a[4],
-                                         const uint32_t b[2]) {
+// byte offset of 16-byte chunk `chunk` of row `row` in a K-major tile of
+// 128-byte rows under the 128-byte swizzle (chunk ^= row % 8 inside each
+// 1024-byte atom of eight rows), the layout wgmma's descriptors read
+__device__ __forceinline__ uint32_t swz(int row, int chunk) {
+  return (uint32_t)row * ROW_BYTES + ((uint32_t)(chunk ^ (row & 7)) << 4);
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+__device__ __forceinline__ uint32_t cluster_size() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_nctarank;\n" : "=r"(r));
+  return r;
+}
+
+// the same shared-memory offset in CTA `rank` of the cluster
+__device__ __forceinline__ uint32_t peer(uint32_t addr, uint32_t rank) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(r) : "r"(addr), "r"(rank));
+  return r;
+}
+
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n"
+               "barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
+               :: "r"(bar), "r"(count) : "memory");
+}
+
+// spin until the barrier's phase differs from `parity`
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
   asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+      "{\n"
+      ".reg .pred p;\n"
+      "WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@!p bra WAIT;\n"
+      "}\n" :: "r"(bar), "r"(parity) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
+               :: "r"(bar) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive_expect(uint32_t bar,
+                                                   uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(bar), "r"(bytes) : "memory");
+}
+
+// arrive on a barrier of any CTA of the cluster (a shared::cluster address)
+__device__ __forceinline__ void mbar_arrive_cluster(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cluster.b64 _, [%0];\n"
+               :: "r"(bar) : "memory");
+}
+
+// copy `bytes` of this CTA's shared memory into a peer's (shared::cluster
+// addresses dst and bar); completes `bytes` on the peer's barrier
+__device__ __forceinline__ void bulk_to_peer(uint32_t dst, uint32_t src,
+                                             uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.shared::cta.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n"
+      :: "r"(dst), "r"(src), "r"(bytes), "r"(bar) : "memory");
+}
+
+// TMA: the box of `map` (half of A's TK x TN tile) at (c0, c1) into this
+// CTA's shared memory, completing its bytes on `bar`
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         int c0, int c1, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3}], [%4];\n"
+      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1),
+         "r"(bar)
+      : "memory");
+}
+
+// wgmma descriptor of a 128-byte-swizzled tile at `addr` (atoms of eight
+// 128-byte rows): `lbo` bytes between 64-element blocks along M or N (an
+// MN-major tile only), `sbo` bytes between atoms along the other dimension
+__device__ __forceinline__ uint64_t desc_sw128(uint32_t addr, uint32_t lbo,
+                                               uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
+         ((uint64_t)(sbo >> 4) << 32) | ((uint64_t)1 << 62);
+}
+
+// byte offset of element (k, j) in the MN-major data tile: four blocks of
+// 64 columns, each TK rows of 128 bytes under the 128-byte swizzle
+__device__ __forceinline__ uint32_t mn_off(int k, int j) {
+  return (uint32_t)(j >> 6) * (TK * ROW_BYTES) + swz(k, (j & 63) >> 3) +
+         (uint32_t)(j & 7) * 2;
+}
+
+// four values of A as four bf16, rounded to nearest even
+__device__ __forceinline__ uint2 four_bf16(const float* p) {
+  const float4 v = *reinterpret_cast<const float4*>(p);
+  return make_uint2(pack_bf16(to_bf16(v.x), to_bf16(v.y)),
+                    pack_bf16(to_bf16(v.z), to_bf16(v.w)));
+}
+__device__ __forceinline__ uint2 four_bf16(const __nv_bfloat16* p) {
+  return *reinterpret_cast<const uint2*>(p);
+}
+
+// keep the accumulators in place across the asynchronous wgmma
+__device__ __forceinline__ void pin(float (&d)[128]) {
+#pragma unroll
+  for (int i = 0; i < 128; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// d[64 x 256] += A[64 x 16] * B[16 x 256], both from shared memory; A is
+// K-major, B K-major (TRANS_B 0) or MN-major (1); d is the m64n256 f32
+// fragment
+template <int TRANS_B>
+__device__ __forceinline__ void wgmma_m64n256k16(float (&d)[128], uint64_t da,
+                                                 uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, "
+      "%10, %11, %12, %13, %14, %15, %16, %17, %18, %19, "
+      "%20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+      "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
+      "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+      "%60, %61, %62, %63, %64, %65, %66, %67, %68, %69, "
+      "%70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, "
+      "%90, %91, %92, %93, %94, %95, %96, %97, %98, %99, "
+      "%100, %101, %102, %103, %104, %105, %106, %107, %108, %109, "
+      "%110, %111, %112, %113, %114, %115, %116, %117, %118, %119, "
+      "%120, %121, %122, %123, %124, %125, %126, %127"
+      "}, %128, %129, p, 1, 1, 0, %131;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]),
+        "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]),
+        "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]),
+        "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]),
+        "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
+        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]),
+        "+f"(d[95]), "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),
+        "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]), "+f"(d[104]),
+        "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]),
+        "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]), "+f"(d[114]),
+        "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]),
+        "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "l"(da), "l"(db), "r"(1), "n"(TRANS_B));
 }
 
 // One TI x TN tile of B = alpha * S_blk @ A. COLMAJOR selects the panel
 // generator (K2's when true). The tile's operator rows count from `shift`
 // rows above output row 0: output row r is tile row r + shift (K1: 0).
+// A's element (k, j) is a[k * sk + j * sn]; `amode` says whether the
+// consumers load it directly or from what TMA (`map`) staged. The
+// contraction splits into gridDim.z ranges of `ks` steps.
 template <typename TA, int RNG, bool GAUSS, bool COLMAJOR>
 __device__ __forceinline__ void sketch_tile(const TA* __restrict__ a,
+                                            int64_t sk, int64_t sn,
+                                            const CUtensorMap* map, int amode,
+                                            int64_t ks,
                                             float* __restrict__ out,
                                             int64_t d, int64_t m, int64_t n,
                                             int shift, uint64_t ctr_stride,
                                             const Seed& seed, float alpha) {
-  // operator panel S[i0:i0+TI, k0:k0+TK] and data tile A[k0:k0+TK, n0:n0+TN]
-  __shared__ __align__(16) __nv_bfloat16 s_op[TI][TK + PAD];
-  __shared__ __align__(16) __nv_bfloat16 s_a[TK][TN + PAD];
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;  // swizzle atoms: 1024 B
+  uint8_t* smem = smem_raw + (base - raw);
+  const uint32_t bars = base + STAGES * STAGE_BYTES;
+  // per stage: full (the panel and the data tile are in place), empty
+  // (every consumer warpgroup of the cluster is done with the panel), and
+  // per consumer warpgroup staged (TMA has landed its half of A's tile)
+  auto full = [&](int s) { return bars + 8u * s; };
+  auto empty = [&](int s) { return bars + 8u * (STAGES + s); };
+  auto staged = [&](int s, int w) {
+    return bars + 8u * (2 * STAGES + 2 * s + w);
+  };
 
   const int tid = threadIdx.x;
-  const int lane = tid & 31, warp = tid >> 5;
-  const int g = lane >> 2, tig = lane & 3;   // mma group / thread in group
-  const int wm = warp >> 2, wn = warp & 3;   // warp's 64 x 32 output slice
+  // the warpgroup, warp-uniform for the compiler (setmaxnreg needs it)
+  const int role = __shfl_sync(0xffffffffu, tid / 128, 0);
+  const uint32_t csize = cluster_size(), crank = cluster_rank();
+  if (tid == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(full(s), 3);           // the producers (+ tx), 2 warpgroups
+      mbar_init(empty(s), 2 * csize);  // each consumer warpgroup of each CTA
+      mbar_init(staged(s, 0), 1);      // the TMA loads of A's tile halves
+      mbar_init(staged(s, 1), 1);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  cluster_sync();  // every barrier of the cluster is set before any use
+
   const int64_t i0 = (int64_t)blockIdx.y * TI;  // first tile row (shifted)
   const int64_t n0 = (int64_t)blockIdx.x * TN;
+  // split blockIdx.z of the contraction: steps s0 .. s0 + nk, its partial
+  // sums into slice z of `out` (one slice when the grid has one split)
+  const int64_t s0 = (int64_t)blockIdx.z * ks;
+  const int64_t nk_all = (m + TK - 1) / TK;
+  const int64_t nk = s0 < nk_all ? (nk_all - s0 < ks ? nk_all - s0 : ks) : 0;
+  out += (int64_t)blockIdx.z * d * n;
+  // the data tile is MN-major when A is row-major and staged by TMA (a
+  // plain conversion, wgmma's transpose bit), else K-major
+  const bool mn_tile = amode == kTmaRows;
 
-  float acc[4][4][4];
+  if (role < CONSUMERS / 128) {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n"
+                 :: "n"(CONSUMER_REGS));
+    const int wg = role;  // tile rows 64 * wg ..
+    const int lt = tid & 127;
+    // this warpgroup's half of the data tile of `step`, as bf16 and zero
+    // past the ragged edges (TMA fills them with zeros): from the staging
+    // tile four values at a time, or element by element from A
+    auto convert = [&](int64_t step) {
+      const int s = (int)(step % STAGES);
+      uint8_t* tile = smem + s * STAGE_BYTES + PANEL_BYTES;
+      const TA* staging = reinterpret_cast<const TA*>(tile + TILE_BYTES);
+      constexpr int kFours = TK * TN / 4 / 2;  // four-value tasks per half
+      if (amode != kLoadDirect) {
+        mbar_wait(staged(s, wg), (uint32_t)(step / STAGES) & 1u);
+      }
+      if (amode == kTmaRows) {
+        // staging [k][n] -> MN-major tile: four adjacent columns of a row
+#pragma unroll 4
+        for (int it = 0; it < kFours / 128; ++it) {
+          const int t = wg * kFours + lt + it * 128;
+          const int k = t / (TN / 4), j = 4 * (t % (TN / 4));
+          *reinterpret_cast<uint2*>(tile + mn_off(k, j)) =
+              four_bf16(staging + k * TN + j);
+        }
+      } else if (amode == kTmaCols) {
+        // staging [n][k] -> K-major tile: four adjacent k of a column
+#pragma unroll 4
+        for (int it = 0; it < kFours / 128; ++it) {
+          const int t = wg * kFours + lt + it * 128;
+          const int j = t / (TK / 4), k = 4 * (t % (TK / 4));
+          *reinterpret_cast<uint2*>(tile + swz(j, k >> 3) + (k & 7) * 2) =
+              four_bf16(staging + j * TK + k);
+        }
+      } else {
+        // K-major tile row j: column n0 + j of A at k0 + 8 ch ..
+        constexpr int kEights = TN * (TK / 8) / 2;
+        const int64_t k0 = (s0 + step) * TK;
+#pragma unroll 2
+        for (int it = 0; it < kEights / 128; ++it) {
+          const int t = wg * kEights + lt + it * 128;
+          const int j = t % TN, ch = t / TN;
+          const int64_t gn = n0 + j, gk = k0 + 8 * ch;
+          __nv_bfloat16 w[8];
 #pragma unroll
-  for (int mt = 0; mt < 4; ++mt)
+          for (int l = 0; l < 8; ++l) {
+            w[l] = (gn < n && gk + l < m) ? to_bf16(a[(gk + l) * sk + gn * sn])
+                                          : __float2bfloat16_rn(0.0f);
+          }
+          *reinterpret_cast<uint4*>(tile + swz(j, ch)) =
+              make_uint4(pack_bf16(w[0], w[1]), pack_bf16(w[2], w[3]),
+                         pack_bf16(w[4], w[5]), pack_bf16(w[6], w[7]));
+        }
+      }
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    };
+    // TMA of this warpgroup's half of A's tile of `step` (rows k of the
+    // row-major staging tile, columns n of the column-major one)
+    auto load_half = [&](int64_t step) {
+      const int s = (int)(step % STAGES);
+      constexpr uint32_t kBytes = TK * TN * sizeof(TA) / 2;
+      const uint32_t dst =
+          smem_u32(smem + s * STAGE_BYTES + PANEL_BYTES + TILE_BYTES) +
+          wg * kBytes;
+      mbar_arrive_expect(staged(s, wg), kBytes);
+      const int k0 = (int)((s0 + step) * TK);
+      if (amode == kTmaRows) {
+        tma_load(dst, map, (int)n0, k0 + wg * (TK / 2), staged(s, wg));
+      } else {
+        tma_load(dst, map, k0, (int)n0 + wg * (TN / 2), staged(s, wg));
+      }
+    };
+    // the warpgroup's half of step's tile is in place: arrive on full, and
+    // load the half tile of step + STAGES into the staging tile it read.
+    // Called only once the warpgroup's products of the step before are
+    // done, which frees the tile's stage
+    auto converted = [&](int64_t step) {
+      const int s = (int)(step % STAGES);
+      asm volatile("bar.sync %0, 128;\n" :: "r"(2 + wg) : "memory");
+      if (lt == 0) {
+        mbar_arrive(full(s));
+        if (amode != kLoadDirect && step + STAGES < nk) {
+          load_half(step + STAGES);
+        }
+      }
+    };
+    float acc[128];
 #pragma unroll
-    for (int nt = 0; nt < 4; ++nt)
+    for (int i = 0; i < 128; ++i) acc[i] = 0.0f;
+    if (amode != kLoadDirect && lt == 0) {
+      for (int64_t step = 0; step < nk && step < STAGES; ++step) {
+        load_half(step);
+      }
+    }
+    if (nk > 0) {
+      convert(0);
+      converted(0);
+    }
+    for (int64_t step = 0; step < nk; ++step) {
+      const int s = (int)(step % STAGES);
+      mbar_wait(full(s), (uint32_t)(step / STAGES) & 1u);
+      const uint32_t panel = base + s * STAGE_BYTES;
+      // k16 slice kk: 32 bytes along a K-major row, 16 rows of an
+      // MN-major tile (descriptor units of 16 bytes)
+      const uint64_t da =
+          desc_sw128(panel + wg * 64 * ROW_BYTES, 16, 8 * ROW_BYTES);
+      pin(acc);
+      asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+      if (mn_tile) {
+        const uint64_t db = desc_sw128(panel + PANEL_BYTES, TK * ROW_BYTES,
+                                       8 * ROW_BYTES);
 #pragma unroll
-      for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.0f;
+        for (int kk = 0; kk < TK / 16; ++kk) {
+          wgmma_m64n256k16<1>(acc, da + 2 * kk, db + 128 * kk);
+        }
+      } else {
+        const uint64_t db =
+            desc_sw128(panel + PANEL_BYTES, 16, 8 * ROW_BYTES);
+#pragma unroll
+        for (int kk = 0; kk < TK / 16; ++kk) {
+          wgmma_m64n256k16<0>(acc, da + 2 * kk, db + 2 * kk);
+        }
+      }
+      asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+      // under the products: the next step's half tile (its stage was last
+      // read by both warpgroups' products of the step before, done: full(s)
+      // counted their arrivals)
+      if (step + 1 < nk) convert(step + 1);
+      asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+      pin(acc);
+      // release the panel in every CTA of the cluster at once (thread r
+      // of the warpgroup signals rank r)
+      if (lt < (int)csize) mbar_arrive_cluster(peer(empty(s), lt));
+      if (step + 1 < nk) converted(step + 1);
+    }
 
-  for (int64_t k0 = 0; k0 < m; k0 += TK) {
-    // 1. generate the panel: TI x TK / 4 counter blocks
-    if constexpr (!COLMAJOR) {
-      // a block is four adjacent columns of one row
+    // epilogue: alpha once, masked stores of the ragged edges. Fragment of
+    // m64n256: register 4 t + 2 h + e holds row 16 w + g + 8 h, column
+    // 8 t + 2 q + e of the warpgroup's 64 x 256 tile
+    const int w = (tid >> 5) & 3, lane = tid & 31;
+    const int g = lane >> 2, q = lane & 3;
+    const int64_t row0 = i0 - shift + wg * 64 + w * 16 + g;
+    const bool pairs = (n % 2) == 0;
 #pragma unroll
-      for (int j = 0; j < TI * (TK / 4) / THREADS; ++j) {
-        const int idx = tid + j * THREADS;
-        const int i = idx / (TK / 4), b = idx % (TK / 4);
-        const int64_t gi = i0 + i, gc = k0 + 4 * b;
-        float v[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-        if (gi < d) {
-          gen4<RNG, GAUSS, true>(seed, (uint64_t)gi * ctr_stride + (uint64_t)(gc >> 2), v);
-        }
+    for (int t = 0; t < TN / 8; ++t) {
+      const int64_t c = n0 + 8 * t + 2 * q;
 #pragma unroll
-        for (int l = 0; l < 4; ++l) {
-          if (gc + l >= m) v[l] = 0.0f;  // phantom columns multiply nothing
-        }
-        uint32_t* dst = reinterpret_cast<uint32_t*>(&s_op[i][4 * b]);
-        dst[0] = pack_bf16(to_bf16(v[0]), to_bf16(v[1]));
-        dst[1] = pack_bf16(to_bf16(v[2]), to_bf16(v[3]));
-      }
-    } else {
-      // a block is four adjacent rows of one column; lanes walk columns
-#pragma unroll
-      for (int j = 0; j < (TI / 4) * TK / THREADS; ++j) {
-        const int idx = tid + j * THREADS;
-        const int c = idx % TK, b = idx / TK;
-        const int64_t gc = k0 + c;
-        const int64_t r0 = i0 + 4 * b - shift;  // output row of lane 0
-        float v[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-        if (gc < m && r0 + 3 >= 0 && r0 < d) {
-          gen4<RNG, GAUSS, true>(seed, (uint64_t)gc * ctr_stride + (uint64_t)((i0 >> 2) + b), v);
-        }
-#pragma unroll
-        for (int l = 0; l < 4; ++l) {
-          if (r0 + l < 0 || r0 + l >= d) v[l] = 0.0f;  // phantom rows
-          s_op[4 * b + l][c] = to_bf16(v[l]);
+      for (int h = 0; h < 2; ++h) {
+        const int64_t r = row0 + 8 * h;
+        if (r < 0 || r >= d) continue;
+        const float x = alpha * acc[4 * t + 2 * h];
+        const float y = alpha * acc[4 * t + 2 * h + 1];
+        float* o = out + r * n + c;
+        if (pairs && c + 1 < n) {
+          *reinterpret_cast<float2*>(o) = make_float2(x, y);
+        } else {
+          if (c < n) o[0] = x;
+          if (c + 1 < n) o[1] = y;
         }
       }
     }
-    // 2. stage the data tile as bf16, zero past the ragged edges
+    cluster_sync();  // no peer signals or copies into an exited CTA
+  } else {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n"
+                 :: "n"(PRODUCER_REGS));
+    const int pt = tid - CONSUMERS;
+    const int share = TI / (int)csize;   // panel rows this CTA generates
+    const int r0 = (int)crank * share;
+    for (int64_t step = 0; step < nk; ++step) {
+      const int s = (int)(step % STAGES);
+      const int64_t k0 = (s0 + step) * TK;
+      mbar_wait(empty(s), ((uint32_t)(step / STAGES) & 1u) ^ 1u);
+      uint8_t* panel = smem + s * STAGE_BYTES;
+      // 1. this CTA's rows r0 .. r0 + share of the operator panel
+      if constexpr (!COLMAJOR) {
+        // a counter block is four adjacent columns of one row
+#pragma unroll 2
+        for (int t = pt; t < share * (TK / 4); t += PRODUCERS) {
+          const int i = r0 + t / (TK / 4), b = t % (TK / 4);
+          const int64_t gi = i0 + i, gc = k0 + 4 * b;
+          float v[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+          if (gi < d && gc < m) {
+            gen4<RNG, GAUSS, true>(
+                seed, (uint64_t)gi * ctr_stride + (uint64_t)(gc >> 2), v);
+          }
 #pragma unroll
-    for (int j = 0; j < TK * (TN / 4) / THREADS; ++j) {
-      const int idx = tid + j * THREADS;
-      const int r = idx / (TN / 4), c4 = idx % (TN / 4);
-      const int64_t gk = k0 + r, gn = n0 + 4 * c4;
-      __nv_bfloat16 w[4];
+          for (int l = 0; l < 4; ++l) {
+            if (gc + l >= m) v[l] = 0.0f;  // phantom columns multiply nothing
+          }
+          *reinterpret_cast<uint2*>(panel + swz(i, b >> 1) + (b & 1) * 8) =
+              make_uint2(pack_bf16(to_bf16(v[0]), to_bf16(v[1])),
+                         pack_bf16(to_bf16(v[2]), to_bf16(v[3])));
+        }
+      } else {
+        // a counter block is four adjacent rows of one column; lanes walk
+        // the columns
+#pragma unroll 2
+        for (int t = pt; t < (share / 4) * TK; t += PRODUCERS) {
+          const int b = r0 / 4 + t / TK, c = t % TK;
+          const int64_t gc = k0 + c;
+          const int64_t rr = i0 + 4 * b - shift;  // output row of lane 0
+          float v[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+          if (gc < m && rr + 3 >= 0 && rr < d) {
+            gen4<RNG, GAUSS, true>(
+                seed, (uint64_t)gc * ctr_stride + (uint64_t)((i0 >> 2) + b),
+                v);
+          }
 #pragma unroll
-      for (int l = 0; l < 4; ++l) {
-        w[l] = (gk < m && gn + l < n) ? to_bf16(a[gk * n + gn + l])
-                                      : __float2bfloat16_rn(0.0f);
+          for (int l = 0; l < 4; ++l) {
+            const int row = 4 * b + l;
+            const float x = (rr + l < 0 || rr + l >= d) ? 0.0f : v[l];
+            *reinterpret_cast<__nv_bfloat16*>(panel + swz(row, c >> 3) +
+                                              (c & 7) * 2) = to_bf16(x);
+          }
+        }
       }
-      uint32_t* dst = reinterpret_cast<uint32_t*>(&s_a[r][4 * c4]);
-      dst[0] = pack_bf16(w[0], w[1]);
-      dst[1] = pack_bf16(w[2], w[3]);
+      // 2. make the stores visible to wgmma and the bulk copies, then send
+      //    this CTA's panel rows to every peer (thread r copies to rank r)
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      asm volatile("bar.sync 1, %0;\n" :: "n"(PRODUCERS) : "memory");
+      const uint32_t bytes = (uint32_t)share * ROW_BYTES;
+      const uint32_t src = smem_u32(panel) + (uint32_t)r0 * ROW_BYTES;
+      if (pt == 0) mbar_arrive_expect(full(s), (csize - 1) * bytes);
+      if (pt < (int)csize && pt != (int)crank) {
+        bulk_to_peer(peer(src, pt), src, bytes, peer(full(s), pt));
+      }
     }
-    __syncthreads();
-    // 3. the warp's 64 x 32 slice: 4 x 4 tiles of m16n8k16
-#pragma unroll
-    for (int kk = 0; kk < TK; kk += 16) {
-      uint32_t af[4][4], bfr[4][2];
-#pragma unroll
-      for (int mt = 0; mt < 4; ++mt) {
-        const int row = wm * 64 + mt * 16 + g;
-        const int col = kk + 2 * tig;
-        af[mt][0] = *reinterpret_cast<const uint32_t*>(&s_op[row][col]);
-        af[mt][1] = *reinterpret_cast<const uint32_t*>(&s_op[row + 8][col]);
-        af[mt][2] = *reinterpret_cast<const uint32_t*>(&s_op[row][col + 8]);
-        af[mt][3] = *reinterpret_cast<const uint32_t*>(&s_op[row + 8][col + 8]);
-      }
-#pragma unroll
-      for (int nt = 0; nt < 4; ++nt) {
-        const int col = wn * 32 + nt * 8 + g;
-        const int k = kk + 2 * tig;
-        bfr[nt][0] = pack_bf16(s_a[k][col], s_a[k + 1][col]);
-        bfr[nt][1] = pack_bf16(s_a[k + 8][col], s_a[k + 9][col]);
-      }
-#pragma unroll
-      for (int mt = 0; mt < 4; ++mt)
-#pragma unroll
-        for (int nt = 0; nt < 4; ++nt) mma_bf16(acc[mt][nt], af[mt], bfr[nt]);
-    }
-    __syncthreads();
-  }
-
-  // epilogue: alpha once, masked stores of the ragged edges
-#pragma unroll
-  for (int mt = 0; mt < 4; ++mt) {
-#pragma unroll
-    for (int nt = 0; nt < 4; ++nt) {
-      const int64_t row = i0 - shift + wm * 64 + mt * 16 + g;
-      const int64_t col = n0 + wn * 32 + nt * 8 + 2 * tig;
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int64_t r = row + (e >= 2 ? 8 : 0);
-        const int64_t c = col + (e & 1);
-        if (r >= 0 && r < d && c < n) out[r * n + c] = alpha * acc[mt][nt][e];
-      }
-    }
+    cluster_sync();
   }
 }
 
 template <typename TA, int RNG, bool GAUSS>
-__global__ void __launch_bounds__(THREADS, 2)
-fused_sketch_kernel(const TA* __restrict__ a, float* __restrict__ out,
-                    int64_t d, int64_t m, int64_t n, uint64_t ctr_stride,
-                    Seed seed, float alpha) {
-  sketch_tile<TA, RNG, GAUSS, false>(a, out, d, m, n, 0, ctr_stride, seed,
-                                     alpha);
+__global__ void __launch_bounds__(THREADS, 1)
+fused_sketch_kernel(const TA* __restrict__ a, int64_t sk, int64_t sn,
+                    const __grid_constant__ CUtensorMap map, int amode,
+                    int64_t ks, float* __restrict__ out, int64_t d, int64_t m,
+                    int64_t n, uint64_t ctr_stride, Seed seed, float alpha) {
+  sketch_tile<TA, RNG, GAUSS, false>(a, sk, sn, &map, amode, ks, out, d, m,
+                                     n, 0, ctr_stride, seed, alpha);
 }
 
 // ---------------------------------------------------------------- K2 ----
 
 template <typename TA, int RNG, bool GAUSS>
-__global__ void __launch_bounds__(THREADS, 2)
-fused_sketch_T_kernel(const TA* __restrict__ a, float* __restrict__ out,
-                      int64_t d, int64_t m, int64_t n, int shift,
-                      uint64_t ctr_stride, Seed seed, float alpha) {
-  sketch_tile<TA, RNG, GAUSS, true>(a, out, d, m, n, shift, ctr_stride, seed,
-                                    alpha);
+__global__ void __launch_bounds__(THREADS, 1)
+fused_sketch_T_kernel(const TA* __restrict__ a, int64_t sk, int64_t sn,
+                      const __grid_constant__ CUtensorMap map, int amode,
+                      int64_t ks, float* __restrict__ out, int64_t d,
+                      int64_t m, int64_t n, int shift, uint64_t ctr_stride,
+                      Seed seed, float alpha) {
+  sketch_tile<TA, RNG, GAUSS, true>(a, sk, sn, &map, amode, ks, out, d, m, n,
+                                    shift, ctr_stride, seed, alpha);
+}
+
+// out = alpha * the sum of the `splits` partial products in ws, in split
+// order (deterministic; no atomics)
+__global__ void fused_sketch_reduce_kernel(const float* __restrict__ ws,
+                                           float* __restrict__ out,
+                                           int64_t count, int splits,
+                                           float alpha) {
+  for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < count;
+       i += (int64_t)gridDim.x * blockDim.x) {
+    float sum = ws[i];
+    for (int z = 1; z < splits; ++z) sum += ws[z * count + i];
+    out[i] = alpha * sum;
+  }
 }
 
 // ---------------------------------------------------------------- K3 ----
@@ -442,35 +834,158 @@ Seed make_seed(const uint32_t* words) {
   return s;
 }
 
-template <typename TA, int RNG>
-void launch_fused(const void* a, float* out, int64_t d, int64_t m, int64_t n,
-                  uint64_t ctr_stride, Seed seed, int gaussian, float alpha,
-                  cudaStream_t stream) {
-  const dim3 grid((unsigned)((n + TN - 1) / TN), (unsigned)((d + TI - 1) / TI));
-  const TA* ap = static_cast<const TA*>(a);
-  if (gaussian) {
-    fused_sketch_kernel<TA, RNG, true><<<grid, THREADS, 0, stream>>>(
-        ap, out, d, m, n, ctr_stride, seed, alpha);
-  } else {
-    fused_sketch_kernel<TA, RNG, false><<<grid, THREADS, 0, stream>>>(
-        ap, out, d, m, n, ctr_stride, seed, alpha);
-  }
+// The launch plan of K1 and K2, computed by ops/fused_sketch.py::launch_plan
+// and checked here: the compiled tile sizes, a cluster of 1, 2, 4, 8 or 16
+// CTAs along n that divides grid.x, a grid that covers the output, and the
+// contraction split into `splits` ranges of `ks` steps on grid.z.
+struct Plan {
+  int ti, tn, tk, cluster;
+  unsigned gx, gy;
+  int splits, ks;
+};
+
+bool plan_ok(const Plan& p, int64_t rows, int64_t m, int64_t n) {
+  const int c = p.cluster;
+  return p.ti == TI && p.tn == TN && p.tk == TK && c >= 1 &&
+         c <= MAX_CLUSTER && (c & (c - 1)) == 0 && p.gx % c == 0 &&
+         (int64_t)p.gx * TN >= n && (int64_t)p.gy * TI >= rows &&
+         p.gy <= 65535 && p.splits >= 1 && p.splits <= 65535 && p.ks >= 1 &&
+         (int64_t)p.splits * p.ks * TK >= m;
 }
 
-template <typename TA, int RNG>
-void launch_fused_T(const void* a, float* out, int64_t d, int64_t m,
-                    int64_t n, int shift, uint64_t ctr_stride, Seed seed,
-                    int gaussian, float alpha, cudaStream_t stream) {
-  const dim3 grid((unsigned)((n + TN - 1) / TN),
-                  (unsigned)((d + shift + TI - 1) / TI));
-  const TA* ap = static_cast<const TA*>(a);
-  if (gaussian) {
-    fused_sketch_T_kernel<TA, RNG, true><<<grid, THREADS, 0, stream>>>(
-        ap, out, d, m, n, shift, ctr_stride, seed, alpha);
-  } else {
-    fused_sketch_T_kernel<TA, RNG, false><<<grid, THREADS, 0, stream>>>(
-        ap, out, d, m, n, shift, ctr_stride, seed, alpha);
+template <typename Kernel>
+cudaError_t prepare(Kernel kernel, int cluster) {
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
+  if (e == cudaSuccess && cluster > 8) {
+    e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
   }
+  return e;
+}
+
+cudaLaunchConfig_t cluster_config(const Plan& p, cudaStream_t stream,
+                                  cudaLaunchAttribute* attr) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(p.gx, p.gy, (unsigned)p.splits);
+  cfg.blockDim = dim3(THREADS, 1, 1);
+  cfg.dynamicSmemBytes = SMEM_BYTES;
+  cfg.stream = stream;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = (unsigned)p.cluster;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
+template <typename Kernel, typename... Args>
+cudaError_t launch_cluster(Kernel kernel, const Plan& p, cudaStream_t stream,
+                           Args... args) {
+  cudaError_t e = prepare(kernel, p.cluster);
+  if (e != cudaSuccess) return e;
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = cluster_config(p, stream, &attr);
+  return cudaLaunchKernelEx(&cfg, kernel, args...);
+}
+
+// the sketch kernel into `out`, or, split, into the partial slices of `ws`
+// and then their sum into `out`
+template <typename Launch>
+cudaError_t launch_split(Launch launch, const Plan& p, float* ws, float* out,
+                         int64_t d, int64_t n, float alpha,
+                         cudaStream_t stream) {
+  if (p.splits == 1) return launch(out, alpha);
+  cudaError_t e = launch(ws, 1.0f);
+  if (e != cudaSuccess) return e;
+  const int64_t count = d * n;
+  const int64_t want = (count + 255) / 256;
+  const unsigned blocks = (unsigned)(want < 132 * 16 ? want : 132 * 16);
+  fused_sketch_reduce_kernel<<<blocks, 256, 0, stream>>>(ws, out, count,
+                                                         p.splits, alpha);
+  return cudaGetLastError();
+}
+
+// cuTensorMapEncodeTiled, looked up at run time so that the library need
+// not link libcuda
+PFN_cuTensorMapEncodeTiled_v12000 encode_tiled() {
+  static PFN_cuTensorMapEncodeTiled_v12000 fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found = cudaDriverEntryPointSymbolNotFound;
+#if CUDART_VERSION >= 12050
+    cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                     cudaEnableDefault, &found);
+#else
+    cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
+                            &found);
+#endif
+    if (found == cudaDriverEntryPointSuccess) {
+      fn = reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(p);
+    }
+  }
+  return fn;
+}
+
+// The TMA map of the halves of A's (TK x TN) tiles where A's layout allows
+// one (one unit stride, the other a multiple of 16 bytes, a 16-byte-aligned
+// base):
+// kTmaRows for row-major A, kTmaCols for column-major A; else kLoadDirect
+// and the producers load A themselves.
+template <typename TA>
+int a_map(const void* a, int64_t sk, int64_t sn, int64_t m, int64_t n,
+          CUtensorMap* map) {
+  const int64_t es = (int64_t)sizeof(TA);
+  const bool rows = sn == 1 && (sk * es) % 16 == 0;
+  const bool cols = !rows && sk == 1 && (sn * es) % 16 == 0;
+  auto encode = encode_tiled();
+  if (!(rows || cols) || reinterpret_cast<uintptr_t>(a) % 16 != 0 ||
+      m <= 0 || m >= (1LL << 31) || n >= (1LL << 31) || encode == nullptr) {
+    return kLoadDirect;
+  }
+  const cuuint64_t dims[2] = {(cuuint64_t)(rows ? n : m),
+                              (cuuint64_t)(rows ? m : n)};
+  const cuuint64_t strides[1] = {(cuuint64_t)((rows ? sk : sn) * es)};
+  // a box is half a tile: each consumer warpgroup loads the half it
+  // converts
+  const cuuint32_t box[2] = {(cuuint32_t)(rows ? TN : TK),
+                             (cuuint32_t)(rows ? TK / 2 : TN / 2)};
+  const cuuint32_t unit[2] = {1, 1};
+  const CUresult r = encode(
+      map, sizeof(TA) == 4 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+                           : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+      2, const_cast<void*>(a), dims, strides, box, unit,
+      CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? (rows ? kTmaRows : kTmaCols) : kLoadDirect;
+}
+
+// K1 (COLMAJOR false) or K2 on A of type TA with generator RNG
+template <bool COLMAJOR, typename TA, int RNG>
+cudaError_t launch_fused(const void* a, int64_t sk, int64_t sn, float* ws,
+                         float* out, int64_t d, int64_t m, int64_t n,
+                         int shift, uint64_t ctr_stride, Seed seed,
+                         int gaussian, float alpha, const Plan& p,
+                         cudaStream_t stream) {
+  const TA* ap = static_cast<const TA*>(a);
+  CUtensorMap map = {};
+  const int amode = a_map<TA>(a, sk, sn, m, n, &map);
+  const int64_t ks = p.ks;
+  auto run = [&](float* dst, float scale) {
+    if constexpr (COLMAJOR) {
+      auto kernel = gaussian ? fused_sketch_T_kernel<TA, RNG, true>
+                             : fused_sketch_T_kernel<TA, RNG, false>;
+      return launch_cluster(kernel, p, stream, ap, sk, sn, map, amode, ks,
+                            dst, d, m, n, shift, ctr_stride, seed, scale);
+    } else {
+      auto kernel = gaussian ? fused_sketch_kernel<TA, RNG, true>
+                             : fused_sketch_kernel<TA, RNG, false>;
+      return launch_cluster(kernel, p, stream, ap, sk, sn, map, amode, ks,
+                            dst, d, m, n, ctr_stride, seed, scale);
+    }
+  };
+  return launch_split(run, p, ws, out, d, n, alpha, stream);
 }
 
 template <int RNG>
@@ -489,57 +1004,89 @@ void launch_fill(float* out, int64_t rows, int64_t cols, int shift,
   }
 }
 
+Plan make_plan(const int32_t* v) {
+  return Plan{v[0], v[1], v[2], v[3], (unsigned)v[4], (unsigned)v[5],
+              v[6], v[7]};
+}
+
+// K1 and K2 share this dispatch: the data type and the generator select
+// the instantiation
+template <bool COLMAJOR>
+int fused_entry(const void* a, int a_bf16, int64_t sk, int64_t sn,
+                float* ws, float* out, int64_t d, int64_t m, int64_t n,
+                int shift, uint64_t ctr_stride, const uint32_t* seed_words,
+                int rng, int gaussian, float alpha, const int32_t* plan_words,
+                void* stream) {
+  if (d <= 0 || n <= 0) return (int)cudaSuccess;
+  if (rng != kPhilox4x32 && rng != kThreefry4x32) return (int)cudaErrorInvalidValue;
+  if (shift < 0 || shift > 3 || m < 0) return (int)cudaErrorInvalidValue;
+  const Plan p = make_plan(plan_words);
+  if (!plan_ok(p, d + shift, m, n) || (p.splits > 1 && ws == nullptr)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const Seed seed = make_seed(seed_words);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  // the instantiation for the data type and the generator
+  auto go = [&](auto ta, auto rng_code) {
+    return launch_fused<COLMAJOR, decltype(ta), decltype(rng_code)::value>(
+        a, sk, sn, ws, out, d, m, n, shift, ctr_stride, seed, gaussian, alpha,
+        p, s);
+  };
+  using Philox = std::integral_constant<int, kPhilox4x32>;
+  using Threefry = std::integral_constant<int, kThreefry4x32>;
+  const bool philox = rng == kPhilox4x32;
+  const cudaError_t e =
+      a_bf16 ? (philox ? go(__nv_bfloat16(), Philox())
+                       : go(__nv_bfloat16(), Threefry()))
+             : (philox ? go(0.0f, Philox()) : go(0.0f, Threefry()));
+  return (int)(e != cudaSuccess ? e : cudaGetLastError());
+}
+
 }  // namespace
 
 // Plain C interface, bound with ctypes (ops/_build.py). seed_words holds the
-// four counter words, then four key words (zero-padded). Each launcher only
-// enqueues on `stream` and returns cudaGetLastError().
+// four counter words, then four key words (zero-padded); plan holds TI, TN,
+// TK, the cluster size, grid.x, grid.y, the splits of the contraction and
+// the steps per split of ops/fused_sketch.py's launch_plan; ws holds
+// splits x d x n floats when splits > 1 (else it may be null). A's element
+// (k, j) is at a[k * sk + j * sn]. Each launcher only enqueues on `stream`
+// and returns the launch's error code.
 
-extern "C" int rbt_fused_sketch(const void* a, int a_bf16, float* out,
-                                int64_t d, int64_t m, int64_t n,
-                                uint64_t ctr_stride,
+extern "C" int rbt_fused_sketch(const void* a, int a_bf16, int64_t sk,
+                                int64_t sn, float* ws, float* out, int64_t d,
+                                int64_t m, int64_t n, uint64_t ctr_stride,
                                 const uint32_t* seed_words, int rng,
-                                int gaussian, float alpha, void* stream) {
-  if (d <= 0 || n <= 0) return (int)cudaSuccess;
-  if (rng != kPhilox4x32 && rng != kThreefry4x32) return (int)cudaErrorInvalidValue;
-  const Seed seed = make_seed(seed_words);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (a_bf16) {
-    if (rng == kPhilox4x32)
-      launch_fused<__nv_bfloat16, kPhilox4x32>(a, out, d, m, n, ctr_stride, seed, gaussian, alpha, s);
-    else
-      launch_fused<__nv_bfloat16, kThreefry4x32>(a, out, d, m, n, ctr_stride, seed, gaussian, alpha, s);
-  } else {
-    if (rng == kPhilox4x32)
-      launch_fused<float, kPhilox4x32>(a, out, d, m, n, ctr_stride, seed, gaussian, alpha, s);
-    else
-      launch_fused<float, kThreefry4x32>(a, out, d, m, n, ctr_stride, seed, gaussian, alpha, s);
-  }
-  return (int)cudaGetLastError();
+                                int gaussian, float alpha,
+                                const int32_t* plan, void* stream) {
+  return fused_entry<false>(a, a_bf16, sk, sn, ws, out, d, m, n, 0,
+                            ctr_stride, seed_words, rng, gaussian, alpha,
+                            plan, stream);
 }
 
-extern "C" int rbt_fused_sketch_T(const void* a, int a_bf16, float* out,
+extern "C" int rbt_fused_sketch_T(const void* a, int a_bf16, int64_t sk,
+                                  int64_t sn, float* ws, float* out,
                                   int64_t d, int64_t m, int64_t n, int shift,
                                   uint64_t ctr_stride,
                                   const uint32_t* seed_words, int rng,
-                                  int gaussian, float alpha, void* stream) {
-  if (d <= 0 || n <= 0) return (int)cudaSuccess;
-  if (rng != kPhilox4x32 && rng != kThreefry4x32) return (int)cudaErrorInvalidValue;
-  if (shift < 0 || shift > 3) return (int)cudaErrorInvalidValue;
-  const Seed seed = make_seed(seed_words);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (a_bf16) {
-    if (rng == kPhilox4x32)
-      launch_fused_T<__nv_bfloat16, kPhilox4x32>(a, out, d, m, n, shift, ctr_stride, seed, gaussian, alpha, s);
-    else
-      launch_fused_T<__nv_bfloat16, kThreefry4x32>(a, out, d, m, n, shift, ctr_stride, seed, gaussian, alpha, s);
-  } else {
-    if (rng == kPhilox4x32)
-      launch_fused_T<float, kPhilox4x32>(a, out, d, m, n, shift, ctr_stride, seed, gaussian, alpha, s);
-    else
-      launch_fused_T<float, kThreefry4x32>(a, out, d, m, n, shift, ctr_stride, seed, gaussian, alpha, s);
-  }
-  return (int)cudaGetLastError();
+                                  int gaussian, float alpha,
+                                  const int32_t* plan, void* stream) {
+  return fused_entry<true>(a, a_bf16, sk, sn, ws, out, d, m, n, shift,
+                           ctr_stride, seed_words, rng, gaussian, alpha, plan,
+                           stream);
+}
+
+// cudaOccupancyMaxActiveClusters of K1's and K2's launch shape (THREADS
+// threads, SMEM_BYTES of shared memory) for clusters of `cluster` CTAs: how
+// many such clusters the current device runs at once
+extern "C" int rbt_fused_max_clusters(int cluster, int* count) {
+  if (cluster < 1 || cluster > MAX_CLUSTER) return (int)cudaErrorInvalidValue;
+  auto kernel = fused_sketch_kernel<float, kPhilox4x32, true>;
+  cudaError_t e = prepare(kernel, cluster);
+  if (e != cudaSuccess) return (int)e;
+  const Plan p{TI, TN, TK, cluster, (unsigned)cluster, 1, 1, 1};
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = cluster_config(p, nullptr, &attr);
+  return (int)cudaOccupancyMaxActiveClusters(count, (void*)kernel, &cfg);
 }
 
 extern "C" int rbt_fill_block(float* out, int64_t rows, int64_t cols,

@@ -116,14 +116,19 @@ def _ensure_built() -> Path:
 def _bind(lib):
     c_void_p, c_int, c_int64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
     words = ctypes.POINTER(ctypes.c_uint32)
+    plan = ctypes.POINTER(ctypes.c_int32)
     lib.rbt_fused_sketch.argtypes = [
-        c_void_p, c_int, c_void_p, c_int64, c_int64, c_int64,
-        ctypes.c_uint64, words, c_int, c_int, ctypes.c_float, c_void_p]
+        c_void_p, c_int, c_int64, c_int64, c_void_p, c_void_p, c_int64,
+        c_int64, c_int64, ctypes.c_uint64, words, c_int, c_int,
+        ctypes.c_float, plan, c_void_p]
     lib.rbt_fused_sketch.restype = c_int
     lib.rbt_fused_sketch_T.argtypes = [
-        c_void_p, c_int, c_void_p, c_int64, c_int64, c_int64, c_int,
-        ctypes.c_uint64, words, c_int, c_int, ctypes.c_float, c_void_p]
+        c_void_p, c_int, c_int64, c_int64, c_void_p, c_void_p, c_int64,
+        c_int64, c_int64, c_int, ctypes.c_uint64, words, c_int, c_int,
+        ctypes.c_float, plan, c_void_p]
     lib.rbt_fused_sketch_T.restype = c_int
+    lib.rbt_fused_max_clusters.argtypes = [c_int, ctypes.POINTER(c_int)]
+    lib.rbt_fused_max_clusters.restype = c_int
     lib.rbt_fill_block.argtypes = [
         c_void_p, c_int64, c_int64, c_int, ctypes.c_uint64, words, c_int,
         c_int, c_void_p]

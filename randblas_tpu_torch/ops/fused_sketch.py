@@ -18,7 +18,10 @@ only. Replaces the Pallas kernel ``_kernel_fill`` (reached through
 
 On a CPU tensor each wrapper runs its plain version, because the tensor
 lies on the CPU; on a CUDA tensor it launches its kernel or raises. Each
-wrapper counts its kernel launches in ``.launches``.
+wrapper counts its kernel launches in ``.launches``. K1 and K2 launch with
+the plan of ``launch_plan`` (tiles, thread-block cluster, grid, contraction
+splits), which asks the card through ``max_active_clusters`` how many
+clusters it runs at once; they read A through its strides.
 
 K1 and K2 are differentiable in A (one ``torch.autograd.Function``, as the
 JAX package's ``jax.custom_vjp``): the sketch is linear in A, so
@@ -41,6 +44,7 @@ from __future__ import annotations
 
 import ctypes
 import math
+from typing import NamedTuple
 
 import torch
 from torch.autograd.function import once_differentiable
@@ -53,7 +57,124 @@ from .dense_fill import rowmajor_values
 _RNG_CODES = {"philox4x32": 0, "threefry4x32": 1}
 SUPPORTED_RNGS = tuple(_RNG_CODES)
 _CTR = 4  # counter words of the supported generators
-_MAX_GRID_Y_ROWS = 65535 * 128  # K1's and K2's row tiles ride grid.y
+
+# K1's and K2's tiles (the constants TI, TN, TK of csrc/fused_sketch.cu):
+# operator rows, output columns and contraction depth per CTA and step
+TI, TN, TK = 128, 256, 64
+_PORTABLE_CLUSTER = 8   # the largest cluster every sm_90 device launches
+_MAX_CLUSTER = 16       # with the non-portable cluster attribute
+_MAX_GRID_Y_ROWS = 65535 * TI  # K1's and K2's row tiles ride grid.y
+_SPLIT_BELOW_WAVES = 8  # cut the contraction of grids of fewer rounds
+_MIN_SPLIT_STEPS = 16  # steps of a split, to amortise filling the ring
+_MAX_WORKSPACE = 1 << 28  # bytes of partial sums
+# a CTA's time in clusters of c is about 1 + _GEN_SHARE * 8 / c that of
+# one in clusters of 8 with no generation: fitted to K1 at the main shape in
+# clusters of 8 and 16 on an H100 80GB HBM3 at 700 W (PERF.md)
+_GEN_SHARE = 0.5
+
+
+class LaunchPlan(NamedTuple):
+    """How K1 and K2 cover a (rows, n) output: TI x TN tiles on a grid of
+    (grid_x, grid_y, splits) CTAs, in clusters of ``cluster`` CTAs along n
+    that share each operator panel, the contraction cut into ``splits``
+    ranges of ``split_steps`` steps of TK (their partial sums added in
+    split order after the kernel). ``regen`` is how many times every
+    operator element is generated: once per cluster along n."""
+    ti: int
+    tn: int
+    tk: int
+    cluster: int
+    grid: tuple
+    regen: int
+    splits: int
+    split_steps: int
+
+    def words(self):
+        """The plan as the launcher takes it."""
+        return (ctypes.c_int32 * 8)(self.ti, self.tn, self.tk, self.cluster,
+                                    *self.grid, self.splits,
+                                    self.split_steps)
+
+
+def _waves(units: int, active: int, splits: int) -> float:
+    """Rounds of ``active`` clusters that ``units`` clusters take with the
+    contraction cut in ``splits``, in units of the uncut round."""
+    return -(-units * splits // active) / splits
+
+
+def _splits(units: int, active: int, steps: int, d: int, n: int) -> int:
+    """How many ranges to cut the contraction into: a grid of a few rounds
+    of clusters leaves part of the card idle in the last one (16 clusters
+    of 8 where 15 fit take two rounds), so it takes the count that fills
+    the rounds best, each range of at least _MIN_SPLIT_STEPS steps, with at
+    most _MAX_WORKSPACE bytes of partial sums."""
+    if not active or units >= _SPLIT_BELOW_WAVES * active:
+        return 1
+    most = min(steps // _MIN_SPLIT_STEPS, _MAX_WORKSPACE // max(1, 4 * d * n))
+    return min(range(1, max(1, most) + 1),
+               key=lambda s: (_waves(units, active, s), s))
+
+
+def launch_plan(d: int, m: int, n: int, shift: int = 0,
+                max_active=None) -> LaunchPlan:
+    """The launch plan of a K1 (shift 0) or K2 call with d output rows, a
+    contraction of m and n output columns; the one place where the tiles,
+    the cluster, the grid and the splits are chosen.
+
+    The cluster spans the column tiles, up to a power of two: all of them
+    where they fit (so S is generated once per row tile), else the portable
+    8, or 16 where ``max_active`` (cluster size -> the device's
+    ``cudaOccupancyMaxActiveClusters``) says that clusters of 16 run and
+    their rounds, each CTA generating half as much, take less time than
+    those of 8 (_GEN_SHARE). grid.x is a multiple of the cluster: CTAs past
+    n compute zeros and join the cluster's barriers. The contraction splits
+    as ``_splits`` says."""
+    tiles = -(-n // TN)
+    row_tiles = -(-(d + shift) // TI)
+    steps = max(1, -(-m // TK))
+    active = max_active or {}
+    cluster = 1
+    while cluster < tiles and cluster < _PORTABLE_CLUSTER:
+        cluster *= 2
+    options = [cluster]
+    if tiles > _PORTABLE_CLUSTER and active.get(_MAX_CLUSTER):
+        options.append(_MAX_CLUSTER)
+
+    def layout(c):  # (relative time, cluster, grid.x, splits)
+        grid_x = -(-tiles // c) * c
+        units = grid_x // c * row_tiles
+        splits = _splits(units, active.get(c, 0), steps, d, n)
+        rounds = (_waves(units, active[c], splits) if active.get(c)
+                  else math.inf)  # unknown, or clusters of c do not run
+        work = 1 + _GEN_SHARE * _PORTABLE_CLUSTER / c
+        return rounds * work, c, grid_x, splits
+
+    _, cluster, grid_x, splits = min(layout(c) for c in options)
+    split_steps = -(-steps // splits)
+    splits = -(-steps // split_steps)
+    return LaunchPlan(TI, TN, TK, cluster, (grid_x, row_tiles),
+                      grid_x // cluster, splits, split_steps)
+
+
+_max_active_cache = {}
+
+
+def max_active_clusters(device) -> dict:
+    """Cluster size -> ``cudaOccupancyMaxActiveClusters`` of K1's launch
+    shape on a CUDA device (8 and 16), queried once per device."""
+    index = torch.device(device).index
+    if index is None:
+        index = torch.cuda.current_device()
+    if index not in _max_active_cache:
+        lib = _build.load()
+        counts = {}
+        with torch.cuda.device(index):
+            for c in (_PORTABLE_CLUSTER, _MAX_CLUSTER):
+                out = ctypes.c_int(0)
+                code = lib.rbt_fused_max_clusters(c, ctypes.byref(out))
+                counts[c] = out.value if code == 0 else 0
+        _max_active_cache[index] = counts
+    return _max_active_cache[index]
 
 
 # float32 0-dim constants stay on the CPU (passed to CUDA kernels as scalars)
@@ -133,14 +254,15 @@ def _fused_plan(S, A, rows_s, cols_s, ro_s, co_s):
 
     The submatrix's first counter folds into the base state. An unaligned
     co_s starts at the previous counter boundary, with co_s % 4 zero rows
-    padded on top of A: the extra operator columns multiply zero data."""
+    padded on top of A: the extra operator columns multiply zero data.
+    Otherwise A keeps its strides: K1 reads a transposed view in place."""
     gaussian = _check_call(S, A, rows_s, cols_s, ro_s, co_s, Layout.RowMajor)
     ctr_stride = _ctr_stride(S.dist.n_cols)
     fbs = co_s % _CTR
     if fbs:
         A = torch.cat([A.new_zeros((fbs, A.shape[1])), A])
     base = S.seed_state.incr(ro_s * ctr_stride + (co_s - fbs) // _CTR)
-    return base, A.contiguous(), rows_s, ctr_stride, gaussian
+    return base, A, rows_s, ctr_stride, gaussian
 
 
 def _colmajor_plan(S, A, rows_s, cols_s, ro_s, co_s):
@@ -155,7 +277,7 @@ def _colmajor_plan(S, A, rows_s, cols_s, ro_s, co_s):
     ctr_stride = _ctr_stride(S.dist.n_rows)
     shift = ro_s % _CTR
     base = S.seed_state.incr(co_s * ctr_stride + (ro_s - shift) // _CTR)
-    return base, A.contiguous(), rows_s, shift, ctr_stride, gaussian
+    return base, A, rows_s, shift, ctr_stride, gaussian
 
 
 def _bf16_product(vals, A, gaussian, alpha):
@@ -195,19 +317,23 @@ def _launch(colmajor, base: RNGState, A, d, shift, ctr_stride, gaussian,
     name = "K2" if colmajor else "K1"
     if A.dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"{name} takes float32 or bf16 data, not {A.dtype}")
-    if A.dim() != 2 or not A.is_contiguous():
-        raise ValueError(f"{name} takes a contiguous 2-D row-major A")
+    if A.dim() != 2:
+        raise ValueError(f"{name} takes a 2-D A")
     if d + shift > _MAX_GRID_Y_ROWS:
         raise ValueError(f"{name} takes at most {_MAX_GRID_Y_ROWS} operator "
                          "rows")
     m, n = A.shape
     lib = _build.load()
+    plan = launch_plan(d, m, n, shift, max_active_clusters(A.device))
     with torch.cuda.device(A.device):
         out = torch.empty((d, n), dtype=torch.float32, device=A.device)
-        head = (A.data_ptr(), int(A.dtype == torch.bfloat16), out.data_ptr(),
-                d, m, n)
+        ws = (torch.empty((plan.splits, d, n), dtype=torch.float32,
+                          device=A.device) if plan.splits > 1 else None)
+        head = (A.data_ptr(), int(A.dtype == torch.bfloat16), A.stride(0),
+                A.stride(1), None if ws is None else ws.data_ptr(),
+                out.data_ptr(), d, m, n)
         tail = (ctr_stride, _seed_words(base), _RNG_CODES[base.rng],
-                int(gaussian), float(alpha), _stream(A))
+                int(gaussian), float(alpha), plan.words(), _stream(A))
         if colmajor:
             code = lib.rbt_fused_sketch_T(*head, shift, *tail)
             fused_sketch_colmajor.launches += 1
