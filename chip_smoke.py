@@ -44,15 +44,18 @@ after:
   conversion;
 
 and the staged route with ``use_kernel_fill``, which launches K3 once and
-no other kernel. For K1 and K2 it also prints the launch plan of the main
-path and of (b) (tiles, thread-block cluster, grid, contraction splits,
-how many times the operator is generated, and the card's
-cudaOccupancyMaxActiveClusters), whether ``cuobjdump -sass`` shows HGMMA
-(wgmma) in every K1/K2 instantiation, their cases at the edges of the
-cluster and the tiles in float32 and bf16 (each launched twice and compared
-bit for bit), path (d)'s peak device memory beside that of the same call
-handed a contiguous copy of A2^T, and one torch.profiler window over five
-main-path calls. Then it times each kernel, its plain version, a PyTorch
+no other kernel, and a float32 SASO sketch at d=3000 (past the old d limit
+of K4), which takes K4 once. For K1 and K2 it also prints the launch plan
+of the main path and of (b) (tiles, thread-block cluster, grid, contraction
+splits, how many times the operator is generated, and the card's
+cudaOccupancyMaxActiveClusters), K4's plan at (e), whether ``cuobjdump
+-sass`` shows HGMMA (wgmma) in every K1, K2 and K4 instantiation, their
+cases at the edges of the cluster and the tiles in float32 and bf16 (each
+launched twice and compared bit for bit; for K4 also d up to 4096, d < 64,
+m < TK, column-major and strided data; for K5 rows with no entry, a full
+row, column chunks and natural-order B), path (d)'s peak device memory
+beside that of the same call handed a contiguous copy of A2^T, and one
+torch.profiler window over five main-path calls. Then it times each kernel, its plain version, a PyTorch
 library call on the same inputs (a yardstick the port never calls: bf16
 ``torch.matmul`` on the materialised operator for K1, K2 and K4, and
 ``torch.sparse.mm`` on a CUDA CSR tensor with float32 data for K4 and K5)
@@ -98,7 +101,8 @@ R4, C4, D4, NNZ4 = 20000, 10000, 512, 1_000_000   # run_all.py config 4
 KERNEL_NAMES = ("fused_sketch_T_kernel", "fused_sketch_kernel",
                 "fused_sketch_reduce_kernel", "fill_block_kernel",
                 "saso_sketch_kernel", "saso_reduce_kernel", "ell_spmm_kernel")
-WGMMA_KERNELS = ("fused_sketch_kernel", "fused_sketch_T_kernel")
+WGMMA_KERNELS = ("fused_sketch_kernel", "fused_sketch_T_kernel",
+                 "saso_sketch_kernel")
 
 
 def check(cond, msg):
@@ -146,7 +150,7 @@ def bound(flops, nbytes, peak=PEAK_BF16):
 
 
 def sass_check(library):
-    """Whether each K1/K2 instantiation in the built library's SASS runs its
+    """Whether each K1/K2/K4 instantiation in the built library's SASS runs its
     product on HGMMA (wgmma), by cuobjdump where the toolkit has it."""
     from randblas_tpu_torch.ops import _build
     tool = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
@@ -214,6 +218,14 @@ def sparse_paths(rt, dev, drive, card):
           f"{k4_rel:.3g} <= {K4_REL_TOL}; vs the float32 densified product "
           f"{e_f32:.3g} <= {STAGED_REL_TOL}")
     del B3_plain
+    active = saso.max_active_ctas(dev)
+    plan = saso.launch_plan(D3, M3, N3, active)
+    print(f"plan (e) K4 {D3}x{M3}@{M3}x{N3}: TI {plan.ti}, TN {plan.tn}, TK "
+          f"{plan.tk}, {plan.row_tiles} x {plan.col_tiles} tiles, grid "
+          f"{plan.grid} ({plan.splits} splits of {plan.split_steps} steps); "
+          f"cudaOccupancyMaxActiveClusters (clusters of one CTA) {active}")
+    check(plan.grid[0] * plan.splits <= active,
+          f"(e) K4's grid takes more than one round: {plan}")
 
     # -- (e') the transposed full route: a right sketch by a tall SASO ----
     A3r = A3.T.contiguous()          # (2048, 65536): the data of (e')
@@ -275,8 +287,43 @@ def sparse_paths(rt, dev, drive, card):
     k4_case("bf16 data", idx3, sgn3, A3[:, :256].to(torch.bfloat16), D3)
     k4_case("column-major data", *structure(700, 3000, 8, 11),
             A3r[:100, :3000].T, 700)
-    k4_case("d=1620 at k=8 (the shared-memory limit)",
+    k4_case("d=1620 at k=8 (the old shared-memory limit)",
             *structure(1620, 8192, 8, 12), A3[:8192, :64].contiguous(), 1620)
+    k4_case("d=2048 k=8", *structure(2048, 8192, 8, 13),
+            A3[:8192, :200].contiguous(), 2048)
+    k4_case("d=4096 k=8 (the gate's largest d)", *structure(4096, 8192, 8, 14),
+            A3[:8192, :130].contiguous(), 4096)
+    k4_case("d=3000 k=16 (d not a multiple of TI)",
+            *structure(3000, 6000, 16, 15), A3[:6000, :96].contiguous(), 3000)
+    k4_case("d=40 (d < 64)", *structure(40, 4096, 4, 16),
+            A3[:4096, :50].contiguous(), 40)
+    k4_case(f"n = TN*8+1 = {saso.TN * 8 + 1}", *structure(512, 4096, 8, 17),
+            A3[:4096, :saso.TN * 8 + 1], 512)
+    k4_case("m=40 (m < TK)", *structure(30, 40, 2, 18),
+            A3[:40, :300].contiguous(), 30)
+    k4_case("column-major data at d=3000", *structure(3000, 5000, 8, 19),
+            A3r[:150, :5000].T, 3000)
+    k4_case("strided data (neither stride 1: element loads)",
+            *structure(700, 3000, 8, 20), A3[:6000:2, :300:3], 700)
+    k4_case("bf16 data at d=2048", *structure(2048, 8192, 8, 21),
+            A3[:8192, :128].to(torch.bfloat16), 2048)
+
+    # the gate is the JAX package's: a float32 SASO sketch with
+    # 1620 < d <= 4096 takes K4
+    S_wide = rt.SparseSkOp(rt.SparseDist(3000, 16384, vec_nnz=8),
+                           rt.RNGState.from_key(22))
+    A_wide = A3[:16384, :256].contiguous()
+    B_wide, _ = drive("SASO sketch at d=3000 (past the old d limit)",
+                      lambda: rt.sketch_general(S_wide, A_wide), {"K4": 1})
+    check(skge.route_counts == {"sparse_saso_kernel": 1},
+          f"d=3000 routes {dict(skge.route_counts)}")
+    sw = S_wide.filled(dev)
+    w_rel = rel_err(B_wide, saso.saso_sketch_reference(
+        sw.rows.reshape(16384, 8), sw.vals.reshape(16384, 8), A_wide, 3000))
+    check(w_rel <= K4_REL_TOL, f"d=3000 K4 vs plain: {w_rel}")
+    print(f"d=3000: sparse_saso_kernel, K4 vs plain normalised {w_rel:.3g} "
+          f"<= {K4_REL_TOL}")
+    del B_wide, A_wide, sw
 
     # -- (f) config 4: sketch_sparse of COO data from the left ------------
     rng = np.random.default_rng(3)
@@ -368,7 +415,29 @@ def sparse_paths(rt, dev, drive, card):
             e_small.blocked(word_major=4, bw_cap=1), B_small[:, :64],
             order="natural")
     k5_case("bf16 B", plain_bell, B_small[:, :128].to(torch.bfloat16))
-    del small, e_small, B_small, plain_bell
+    # the compaction's edges: rows with no entry (only even rows have
+    # entries), and a full row (row 0 takes every column: all its slots of
+    # every 64-slot chunk are full, bw = kb = 128)
+    even = rt.COOMatrix.from_arrays(
+        3000, 5000, 2 * rng.integers(0, 1500, 100_000),
+        rng.integers(0, 5000, 100_000),
+        rng.normal(size=100_000).astype(np.float32), device=dev)
+    k5_case("empty rows (odd rows have no entry)",
+            ELLMatrix.from_coo(even).blocked(), B_small[:, :512].contiguous())
+    full_rows = np.concatenate([np.zeros(5000, np.int64),
+                                rng.integers(1, 3000, 20_000)])
+    full_cols = np.concatenate([np.arange(5000),
+                                rng.integers(0, 5000, 20_000)])
+    dense_row = rt.COOMatrix.from_arrays(
+        3000, 5000, full_rows, full_cols,
+        rng.normal(size=full_rows.size).astype(np.float32), device=dev)
+    full_bell = ELLMatrix.from_coo(dense_row).blocked()
+    check(full_bell.bw == full_bell.kb, f"full row: bw {full_bell.bw}")
+    k5_case(f"a full row (bw = kb = {full_bell.kb}, {full_bell.n_kblocks} "
+            "blocks)", full_bell, B_small[:, :300].contiguous())
+    k5_case("word-major, natural-order B, n=1100 (3 column chunks)",
+            e_small.blocked(word_major=4), B_small, order="natural")
+    del small, e_small, B_small, plain_bell, even, dense_row, full_bell
 
     # -- times ------------------------------------------------------------
     k4_ms = time_ms(lambda: saso.saso_sketch(idx3, sgn3, A3, D3))
@@ -420,7 +489,10 @@ def sparse_paths(rt, dev, drive, card):
           f"{setup_s:.3f} s [{card}]")
     print(f"bounds: K4 {k4_bound[0]:.4f} ms ({k4_bound[1]}), K5 "
           f"{k5_bound[0]:.4f} ms ({k5_bound[1]}), at {PEAK_F32 / 1e12:.0f} "
-          f"TFLOP/s float32 and {PEAK_BYTES / 1e12:.2f} TB/s")
+          f"TFLOP/s float32 and {PEAK_BYTES / 1e12:.2f} TB/s; K4's dense "
+          f"tensor-core product (2 d m n) alone "
+          f"{2.0 * D3 * M3 * N3 / PEAK_BF16 * 1e3:.4f} ms at "
+          f"{PEAK_BF16 / 1e12:.0f} TFLOP/s bf16")
 
     # launches: K4 on path (e), K5 on path (g)
     return [entry("K4", "saso_sketch_kernel", "saso_sketch", 67,

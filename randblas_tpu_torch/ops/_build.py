@@ -134,10 +134,12 @@ def _bind(lib):
         c_int, c_void_p]
     lib.rbt_fill_block.restype = c_int
     lib.rbt_saso_sketch.argtypes = [
-        c_void_p, c_int, c_int64, c_int64, c_void_p, c_void_p, c_int64,
-        c_void_p, c_void_p, c_int64, c_int64, c_int64, c_int, c_int, c_int64,
-        ctypes.c_float, c_void_p]
+        c_void_p, c_int, c_int64, c_int64, c_void_p, c_void_p, c_int,
+        c_void_p, c_void_p, c_int64, c_int64, c_int64, ctypes.c_float, plan,
+        c_void_p]
     lib.rbt_saso_sketch.restype = c_int
+    lib.rbt_saso_max_ctas.argtypes = [ctypes.POINTER(c_int)]
+    lib.rbt_saso_max_ctas.restype = c_int
     lib.rbt_ell_spmm.argtypes = [
         c_void_p, c_void_p, c_int64, c_int64, c_int, c_int, c_void_p,
         c_int64, c_int64, c_void_p, c_int64, c_int64, c_int, c_int64,

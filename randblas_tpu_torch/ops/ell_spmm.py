@@ -268,9 +268,12 @@ def _launch(bell: BlockedELL, b: torch.Tensor, alpha, natural: bool):
     v = bell.vals.to(torch.float32).contiguous()
     lib = _build.load()
     with torch.cuda.device(b.device):
-        b_bf = torch.zeros((b.shape[0], ldb), dtype=torch.bfloat16,
-                           device=b.device)
-        b_bf[:, :n] = b
+        if ldb == n:   # one conversion pass; a no-op for bf16 B
+            b_bf = b.to(torch.bfloat16).contiguous()
+        else:          # rows padded to whole 16-byte loads
+            b_bf = torch.zeros((b.shape[0], ldb), dtype=torch.bfloat16,
+                               device=b.device)
+            b_bf[:, :n] = b
         out = torch.empty((m, n), dtype=torch.float32, device=b.device)
         stream = torch.cuda.current_stream(b.device).cuda_stream
         code = lib.rbt_ell_spmm(

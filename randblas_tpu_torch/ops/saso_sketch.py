@@ -9,15 +9,19 @@ runs the plain version. Both round A to bf16 (the JAX package pre-casts A)
 and sum in float32, so they differ only in the order of the sums. Launches
 are counted in ``saso_sketch.launches``.
 
-The kernel holds all d output rows of a 32-column strip in shared memory,
-so d is limited by the card's 227 KB per block: ``saso_sketch_supported``
-says which calls it takes (d up to 1620 at k = 8 and 1556 at k = 16; the
-JAX package's VMEM gate is d_pad <= 4096). The JAX gate's k <= 16 stays.
+The kernel contracts bf16 one-hot panels of S with A on the tensor cores,
+one TI x TN output tile per CTA, with the contraction split on grid.z by
+``launch_plan``; no output has to fit one block's shared memory, so
+``saso_sketch_supported`` is the JAX package's gate: 1 <= k <= 16 and
+d_pad = ceil(d / 128) * 128 <= 4096. A is read through its strides: a
+layout TMA cannot take is loaded element by element inside the kernel.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import NamedTuple
 
 import torch
 
@@ -25,28 +29,93 @@ from ..base import require
 from . import _build
 
 MAX_K = 16
-MAX_SMEM = 232448   # bytes of shared memory one H100 block can use
-_SM_SMEM = 233472   # bytes of shared memory on one SM (blocks share it)
-_TN, _ROWS, _TILE_LD = 32, 128, 33   # the kernel's strip, tile and tile row
-
-
-def _smem_bytes(d: int, k: int) -> int:
-    """The kernel's dynamic shared memory (``smem_bytes`` in the source)."""
-    return d * _TN * 4 + _ROWS * _TILE_LD * 4 + _ROWS * k * 8
+_LO = 128          # the JAX gate's row block: d_pad = ceil(d / 128) * 128
+MAX_D_PAD = 4096
+# the kernel's tiles (the constants TI, TN, TK of csrc/saso_sketch.cu):
+# output rows, output columns and contraction depth per CTA and step
+TI, TN, TK = 256, 128, 64
+_SPLIT_BELOW_WAVES = 8  # cut the contraction of grids of fewer rounds
+_MIN_SPLIT_STEPS = 16   # steps of a split, to amortise filling the ring
+_MAX_WORKSPACE = 1 << 28  # bytes of partial sums
 
 
 def saso_sketch_supported(d: int, m: int, k: int, n: int) -> bool:
-    """Shape gate of K4: 1 <= k <= 16, and the d x 32 float32 sums, the
-    staged tile of A and its tables fit one block's shared memory."""
-    return 1 <= k <= MAX_K and d >= 1 and m >= 1 and n >= 1 \
-        and _smem_bytes(d, k) <= MAX_SMEM
+    """Shape gate of K4, the JAX package's: 1 <= k <= 16, d_pad =
+    ceil(d / 128) * 128 <= 4096, m, n >= 1 (d = 0 gives an empty
+    output)."""
+    d_pad = -(-d // _LO) * _LO
+    return 1 <= k <= MAX_K and d_pad <= MAX_D_PAD and m >= 1 and n >= 1
 
 
-def _tables(idxs_major, vals):
-    """(k, m) int32 index and float32 sign tables from (m, k)."""
-    idx = idxs_major.to(torch.int32).T.contiguous()
-    sgn = vals.to(torch.float32).T.contiguous()
-    return idx, sgn
+class LaunchPlan(NamedTuple):
+    """How K4 covers a (d, n) output: TI x TN tiles, ``row_tiles`` x
+    ``col_tiles`` of them on grid.x (the row tiles of one column tile
+    adjacent, so that they read each tile of A together), the contraction
+    cut into ``splits`` ranges of ``split_steps`` steps of TK on grid.z
+    (their partial sums added in split order after the kernel)."""
+    ti: int
+    tn: int
+    tk: int
+    row_tiles: int
+    col_tiles: int
+    grid: tuple
+    splits: int
+    split_steps: int
+
+    def words(self):
+        """The plan as the launcher takes it."""
+        return (ctypes.c_int32 * 7)(self.ti, self.tn, self.tk,
+                                    self.row_tiles, self.col_tiles,
+                                    self.splits, self.split_steps)
+
+
+def _splits(tiles: int, active: int, steps: int, d: int, n: int) -> int:
+    """How many ranges to cut the contraction into: a grid of a few rounds
+    of CTAs leaves part of the card idle in the last one (64 tiles on 132
+    SMs fill half of it), so it takes the count that fills the rounds best,
+    each range of at least _MIN_SPLIT_STEPS steps, with at most
+    _MAX_WORKSPACE bytes of partial sums."""
+    if not active or tiles >= _SPLIT_BELOW_WAVES * active:
+        return 1
+    most = min(steps // _MIN_SPLIT_STEPS, _MAX_WORKSPACE // max(1, 4 * d * n))
+    return min(range(1, max(1, most) + 1),
+               key=lambda s: (-(-tiles * s // active) / s, s))
+
+
+@functools.lru_cache(maxsize=256)
+def launch_plan(d: int, m: int, n: int, max_active=None) -> LaunchPlan:
+    """The launch plan of a K4 call with d output rows, a contraction of m
+    and n output columns: the one place where the tiles, the grid and the
+    splits are chosen. ``max_active`` is how many CTAs the card runs at
+    once (``max_active_ctas``; None: unknown, no splits). Cached: a
+    wrapper call plans once per shape."""
+    row_tiles, col_tiles = -(-d // TI), -(-n // TN)
+    steps = max(1, -(-m // TK))
+    tiles = row_tiles * col_tiles
+    splits = _splits(tiles, max_active or 0, steps, d, n)
+    split_steps = -(-steps // splits)
+    splits = -(-steps // split_steps)
+    return LaunchPlan(TI, TN, TK, row_tiles, col_tiles, (tiles, 1, splits),
+                      splits, split_steps)
+
+
+_max_active_cache = {}
+
+
+def max_active_ctas(device) -> int:
+    """``cudaOccupancyMaxActiveClusters`` of K4's launch shape (clusters of
+    one CTA) on a CUDA device, queried once per device: how many CTAs run
+    at once."""
+    index = torch.device(device).index
+    if index is None:
+        index = torch.cuda.current_device()
+    if index not in _max_active_cache:
+        lib = _build.load()
+        with torch.cuda.device(index):
+            out = ctypes.c_int(0)
+            code = lib.rbt_saso_max_ctas(ctypes.byref(out))
+        _max_active_cache[index] = out.value if code == 0 else 0
+    return _max_active_cache[index]
 
 
 def saso_sketch_reference(idxs_major, vals, a: torch.Tensor, d: int,
@@ -56,7 +125,8 @@ def saso_sketch_reference(idxs_major, vals, a: torch.Tensor, d: int,
     idx[c, slot] (padding index -1 adds nothing), float32 sums, one slot
     after another."""
     a_bf = a.to(torch.bfloat16).to(torch.float32)
-    idx, sgn = _tables(idxs_major, vals)
+    idx = idxs_major.to(torch.int32).T   # (k, m): one slot per row
+    sgn = vals.to(torch.float32).T
     out = torch.zeros((d, a.shape[1]), dtype=torch.float32, device=a.device)
     for idx_s, sgn_s in zip(idx, sgn):   # one slot at a time
         keep = idx_s >= 0
@@ -66,41 +136,29 @@ def saso_sketch_reference(idxs_major, vals, a: torch.Tensor, d: int,
     return out
 
 
-def _split(strips: int, n_tiles: int, smem: int, device) -> int:
-    """Row ranges per strip so that the grid fills the SMs once."""
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    per_sm = max(1, min(8, _SM_SMEM // (smem + 1024)))   # 1 KB per block
-    return max(1, min(n_tiles, (sms * per_sm) // strips, 65535))
-
-
 def _launch(idxs_major, vals, a: torch.Tensor, d: int, alpha) -> torch.Tensor:
     m, k = idxs_major.shape
     n = a.shape[1]
     if a.dtype not in (torch.float32, torch.bfloat16):
         a = a.to(torch.float32)
-    if a.stride(1) != 1 and a.stride(0) != 1:
-        a = a.contiguous()
     if not (idxs_major.is_cuda and vals.is_cuda
             and idxs_major.device == a.device == vals.device):
         raise ValueError("K4 takes its tables and A on one CUDA device")
-    idx, sgn = _tables(idxs_major, vals)
-    smem = _smem_bytes(d, k)
-    strips = -(-n // _TN)
-    n_tiles = -(-m // _ROWS)
+    # the kernel reads the (m, k) structure as it is
+    idx = idxs_major.to(torch.int32).contiguous()
+    sgn = vals.to(torch.float32).contiguous()
     lib = _build.load()
+    plan = launch_plan(d, m, n, max_active_ctas(a.device))
     with torch.cuda.device(a.device):
-        split = _split(strips, n_tiles, smem, a.device)
-        rows_per_split = -(-n_tiles // split) * _ROWS
-        split = -(-m // rows_per_split)
         out = torch.empty((d, n), dtype=torch.float32, device=a.device)
-        partial = (torch.empty((split, d, n), dtype=torch.float32,
-                               device=a.device) if split > 1 else None)
+        ws = (torch.empty((plan.splits, d, n), dtype=torch.float32,
+                          device=a.device) if plan.splits > 1 else None)
         stream = torch.cuda.current_stream(a.device).cuda_stream
         code = lib.rbt_saso_sketch(
             a.data_ptr(), int(a.dtype == torch.bfloat16), a.stride(0),
-            a.stride(1), idx.data_ptr(), sgn.data_ptr(), m, out.data_ptr(),
-            None if partial is None else partial.data_ptr(), d, m, n, k,
-            split, rows_per_split, float(alpha), ctypes.c_void_p(stream))
+            a.stride(1), idx.data_ptr(), sgn.data_ptr(), k,
+            None if ws is None else ws.data_ptr(), out.data_ptr(), d, m, n,
+            float(alpha), plan.words(), ctypes.c_void_p(stream))
         saso_sketch.launches += 1
     _build.check(code, "saso_sketch_kernel launch")
     return out
@@ -111,8 +169,8 @@ def saso_sketch(idxs_major, vals, a: torch.Tensor, d: int,
     """alpha * S @ a for a wide SASO given by its per-column structure:
     idxs_major (m, k) output row of each slot of each data row (-1 for
     none), vals (m, k) signs, a (m, n) float32 or bf16 (other types are
-    cast to float32), row- or column-major. Returns (d, n) float32, from
-    K4 on a CUDA tensor or from the plain version on a CPU one."""
+    cast to float32), any strides. Returns (d, n) float32, from K4 on a
+    CUDA tensor or from the plain version on a CPU one."""
     a = torch.as_tensor(a)
     require(idxs_major.dim() == 2 and vals.shape == idxs_major.shape,
             "idxs_major and vals must be (m, k)")
@@ -120,8 +178,8 @@ def saso_sketch(idxs_major, vals, a: torch.Tensor, d: int,
     require(a.dim() == 2 and a.shape[0] == m,
             "operand height must equal S.n_cols")
     require(saso_sketch_supported(d, m, k, a.shape[1]),
-            "shape outside the kernel's gate (k <= 16, d x 32 float32 sums "
-            "in one block's shared memory)")
+            "shape outside the kernel's gate (1 <= k <= 16, "
+            "ceil(d / 128) * 128 <= 4096)")
     if a.is_cuda:
         return _launch(idxs_major, vals, a, d, alpha)
     if a.device.type != "cpu":

@@ -196,8 +196,9 @@ def _right_fused_or_none(S: DenseSkOp, a_mat, blk, op_s: Op, alpha):
 
 def _saso_kernel_ok(d: int, m: int, k: int, b: torch.Tensor) -> bool:
     """Whether K4 takes a (d, m) wide-SASO product with k slots per column
-    on b: its shape gate and float32 data, on a CUDA tensor under "auto"
-    or anywhere under True."""
+    on b: its shape gate (the JAX package's: k <= 16, ceil(d / 128) * 128
+    <= 4096) and float32 data, on a CUDA tensor under "auto" or anywhere
+    under True."""
     from .ops.saso_sketch import saso_sketch_supported
     return (use_saso_kernel is not False
             and saso_sketch_supported(d, m, k, b.shape[1])

@@ -84,6 +84,45 @@ def test_k5_plain_matches_jax_kernel(m, k, n, kw):
     assert _norm_err(got, want) <= 1e-5
 
 
+def _edge_coo(case, seed):
+    """COO data at the edges of K5's compaction (64-slot chunks of one
+    row's slots): rows with no entry, a row whose slots are all full
+    (bw = kb), and a row whose entries run across many chunks."""
+    rng = np.random.default_rng(seed)
+    m, k = 70, 700
+    if case == "empty_rows":      # only even rows have entries
+        r, c = 2 * rng.integers(0, m // 2, 600), rng.integers(0, k, 600)
+    elif case == "full_row":      # row 3 takes every column
+        r = np.concatenate([np.full(k, 3), rng.integers(0, m, 300)])
+        c = np.concatenate([np.arange(k), rng.integers(0, k, 300)])
+    else:                         # row 5: 400 entries over every block
+        r = np.concatenate([np.full(400, 5), rng.integers(0, m, 300)])
+        c = np.concatenate([rng.choice(k, 400, replace=False),
+                            rng.integers(0, k, 300)])
+    _, first = np.unique(r * k + c, return_index=True)
+    first.sort()
+    r, c = r[first], c[first]
+    v = rng.standard_normal(len(r)).astype(np.float32)
+    return (JCOO.from_arrays(m, k, r, c, v),
+            TCOO.from_arrays(m, k, r, c, v, device="cpu"))
+
+
+@pytest.mark.parametrize("kw", [dict(), dict(word_major=4)], ids=str)
+@pytest.mark.parametrize("case", ["empty_rows", "full_row", "long_row"])
+def test_k5_plain_matches_jax_at_compaction_edges(case, kw):
+    jc, tc = _edge_coo(case, seed=len(case))
+    jb, tb = JELL.from_coo(jc).blocked(**kw), TELL.from_coo(tc).blocked(**kw)
+    if case == "full_row":
+        assert tb.bw == tb.kb       # every slot of row 3 is full
+    B = np.random.default_rng(11).standard_normal((jb.b_rows, 40)).astype(
+        np.float32)
+    want = jell.blocked_ell_matmul(jb, jnp.asarray(B), interpret=True)
+    got = tell.blocked_ell_matmul(tb, torch.from_numpy(B))
+    assert _norm_err(got, want) <= 1e-5
+    if case == "empty_rows":
+        assert not got[1::2].any()
+
+
 def test_k5_repeated_column_within_bf16():
     jc, tc = _coo(200, 700, 3000, seed=3, unique=False)
     jb, tb = JELL.from_coo(jc).blocked(), TELL.from_coo(tc).blocked()

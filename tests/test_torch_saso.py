@@ -16,6 +16,8 @@ import torch
 
 import randblas_tpu as rb
 from randblas_tpu.ops.saso_sketch import saso_sketch as jsaso
+from randblas_tpu.ops.saso_sketch import (
+    saso_sketch_supported as jsaso_supported)
 import randblas_tpu_torch as rt
 from randblas_tpu_torch import skge as tskge
 from randblas_tpu_torch.ops import saso_sketch as tsaso_mod
@@ -53,6 +55,8 @@ def _ops(shape, k, major="Short", key=3):
     (1000, 2048, 129, 16, 1.0),   # the most slots, ragged n
     (513, 4096, 7, 1, 1.0),       # one slot, skinny operand
     (256, 2048, 64, 8, -0.75),    # alpha
+    (2048, 4096, 40, 8, 1.0),     # past the old shared-memory limit
+    (4000, 8192, 24, 8, 1.0),     # near the gate's d_pad = 4096
 ])
 def test_k4_plain_matches_jax_kernel(d, m, n, k, alpha):
     """The cases of tests/test_saso_kernel.py."""
@@ -100,14 +104,42 @@ def test_k4_takes_column_major_data():
 
 def test_k4_gate():
     assert saso_sketch_supported(1024, 65536, 8, 2048)
-    assert saso_sketch_supported(1620, 100, 8, 10)
-    assert not saso_sketch_supported(1621, 100, 8, 10)    # shared memory
-    assert saso_sketch_supported(1556, 100, 16, 10)
-    assert not saso_sketch_supported(1557, 100, 16, 10)
+    assert saso_sketch_supported(1621, 100, 8, 10)   # no shared-memory limit
+    assert saso_sketch_supported(4096, 100, 16, 10)
+    assert not saso_sketch_supported(4097, 100, 8, 10)   # d_pad > 4096
     assert not saso_sketch_supported(1024, 65536, 17, 2048)   # slot axis
     with pytest.raises(ValueError, match="gate"):
         saso_sketch(torch.zeros((5, 17), dtype=torch.int32),
                     torch.ones((5, 17)), torch.ones((5, 3)), 100)
+    with pytest.raises(ValueError, match="gate"):
+        saso_sketch(torch.zeros((5, 8), dtype=torch.int32),
+                    torch.ones((5, 8)), torch.ones((5, 3)), 4097)
+
+
+@pytest.mark.parametrize("d", [0, 1, 60, 128, 129, 1556, 1557, 1620, 1621,
+                               3968, 3969, 4096, 4097, 8192])
+def test_k4_gate_equals_jax(d):
+    """The port's gate is the JAX package's over k, m and n, degenerate
+    sizes included."""
+    for k in (0, 1, 8, 16, 17):
+        for m in (0, 1, 65536):
+            for n in (0, 1, 2048):
+                assert saso_sketch_supported(d, m, k, n) == \
+                    jsaso_supported(d, m, k, n), (d, m, k, n)
+
+
+def test_k4_route_past_the_old_limit():
+    """A float32 SASO sketch with 1620 < d <= 4096 takes the K4 route
+    (its plain version on the CPU under use_saso_kernel=True)."""
+    jS, tS = _ops((3000, 4096), 8, key=12)
+    A = _data((4096, 16), 12)
+    with rb.flags(use_saso_kernel="interp"):
+        want = rb.sketch_general(jS, jnp.asarray(A))
+    tskge.route_counts.clear()
+    with rt.flags(use_saso_kernel=True):
+        got = rt.sketch_general(tS.filled(device="cpu"), torch.from_numpy(A))
+    assert dict(tskge.route_counts) == {"sparse_saso_kernel": 1}
+    assert _norm_err(got, want) <= 1e-5
 
 
 def test_k4_does_not_launch_on_the_cpu():
