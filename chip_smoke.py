@@ -7,12 +7,15 @@ the CUDA toolkit:
     python3 chip_smoke.py
 
 It builds the kernels from ``randblas_tpu_torch/csrc`` with nvcc, checks
-the fill kernel K3, the fused sketch kernels K1 and K2, the SASO sketch
-kernel K4 and the BlockedELL SpMM kernel K5 against their plain PyTorch
-versions on the card (K4 and K5 also launched twice on the same inputs and
-compared bit for bit), and drives these paths through the public entry
-points, each with the launch counts set to 0 just before it and read just
-after:
+the fill kernel K3 (in both Gaussian transforms and both orientations, a
+ColMajor block's natural one through the transposed operator, bit for bit),
+the lazy fill ``fill_dense_submat``, which runs K3 on the card,
+against the plain fill (bit for bit, float32, float64 and bf16), the fused
+sketch kernels K1 and K2, the SASO sketch kernel K4 and the BlockedELL SpMM
+kernel K5 against their plain PyTorch versions on the card (K4 and K5 also
+launched twice on the same inputs and compared bit for bit), and drives
+these paths through the public entry points, each with the launch counts
+set to 0 just before it and read just after:
 
 - the main path, a left sketch by a wide Gaussian operator, which launches
   K1 once and no other kernel:
@@ -36,16 +39,18 @@ after:
   the tall SASO SparseDist(65536, 1024, vec_nnz=8): K4 once, on a
   column-major view of the data;
 - (f) run_all.py config 4: sketch_sparse of COO data (20000 x 10000, 1e6
-  entries) from the left by DenseDist(512, 20000): the COO route, no
-  kernel;
+  entries) from the left by DenseDist(512, 20000): K3 once for the
+  operator block, then the COO route;
 - (g) config 4b: the same data as a word-major BlockedELL, sketched from
-  the right by DenseDist(10000, 512): K5 once; and the same right sketch
-  of the COO data, which reaches K5 once through the cached BlockedELL
-  conversion;
+  the right by DenseDist(10000, 512): K3 once (the ColMajor block in math
+  orientation) and K5 once; and the same right sketch of the COO data,
+  which reaches K5 once through the cached BlockedELL conversion;
 
-and the staged route with ``use_kernel_fill``, which launches K3 once and
-no other kernel, and a float32 SASO sketch at d=3000 (past the old d limit
-of K4), which takes K4 once. For K1 and K2 it also prints the launch plan
+and the staged route (K3 once, its product against that of the plain
+fill), the staged route with ``use_kernel_fill`` (K3 once, the TPU
+kernel's transform), a square distribution's backward pass (K2 and K3
+once) and a float32 SASO sketch at d=3000 (past the old d limit of K4),
+which takes K4 once. For K1 and K2 it also prints the launch plan
 of the main path and of (b) (tiles, thread-block cluster, grid, contraction
 splits, how many times the operator is generated, and the card's
 cudaOccupancyMaxActiveClusters), K4's plan at (e), whether ``cuobjdump
@@ -55,27 +60,37 @@ launched twice and compared bit for bit; for K4 also d up to 4096, d < 64,
 m < TK, column-major and strided data; for K5 rows with no entry, a full
 row, column chunks and natural-order B), path (d)'s peak device memory
 beside that of the same call handed a contiguous copy of A2^T, and one
-torch.profiler window over five main-path calls. Then it times each kernel, its plain version, a PyTorch
+torch.profiler window over five main-path calls, and K3's static SASS
+instruction mix. Then it times each kernel, its plain version, a PyTorch
 library call on the same inputs (a yardstick the port never calls: bf16
 ``torch.matmul`` on the materialised operator for K1, K2 and K4, and
 ``torch.sparse.mm`` on a CUDA CSR tensor with float32 data for K4 and K5)
-and the paths with CUDA events. The line before the last is a JSON object
-listing K1 to K5; the last line is {"ok": true, "device": {...}}. Any
+and the paths with CUDA events (K3 also 20 calls back to back and by its
+device time in a torch.profiler window, in both transforms at the paths'
+shapes, its wrappers' host time per call on a 4 x 4 block, and the
+operator blocks of (f) and (g) beside the plain fill). The line before the
+last is a JSON object listing K1 to K5, each with one call's time through
+its wrapper; K3's entry is the fill the staged route runs (1024 x 65536,
+the staged fill's transform), with the launches of that route and two more
+keys, its device time (``device_ms``) and its time a call 20 calls back to
+back (``seq_ms``). The last line is {"ok": true, "device": {...}}. Any
 failed check raises, so the exit code is non-zero and no result line is
 printed. Without a CUDA device it exits non-zero before running anything.
-It imports nothing of JAX.
+It imports nothing of JAX. Its timing helpers are ``kernel_variants.py``'s,
+beside it.
 """
 
 import json
 import os
 import re
-import statistics
 import subprocess
 import sys
 import time
 
 import numpy as np
 import torch
+
+from kernel_variants import device_ms, event_device_us, time_ms
 
 D, M, N = 1024, 65536, 4096          # the main path's shape
 R2, C2, D2 = 16384, 16384, 1024      # run_all.py config 2: A2 (R2, C2), d
@@ -99,8 +114,9 @@ PEAK_BYTES = 3.35e12   # H100 SXM HBM3 bytes/s
 D3, M3, N3, K3_NNZ = 1024, 65536, 2048, 8   # run_all.py config 3
 R4, C4, D4, NNZ4 = 20000, 10000, 512, 1_000_000   # run_all.py config 4
 KERNEL_NAMES = ("fused_sketch_T_kernel", "fused_sketch_kernel",
-                "fused_sketch_reduce_kernel", "fill_block_kernel",
-                "saso_sketch_kernel", "saso_reduce_kernel", "ell_spmm_kernel")
+                "fused_sketch_reduce_kernel", "fill_block_T_kernel",
+                "fill_block_kernel", "saso_sketch_kernel",
+                "saso_reduce_kernel", "ell_spmm_kernel")
 WGMMA_KERNELS = ("fused_sketch_kernel", "fused_sketch_T_kernel",
                  "saso_sketch_kernel")
 
@@ -124,20 +140,61 @@ def abs_err(got, want):
     return (got.float() - want.float()).abs().max().item()
 
 
-def time_ms(fn, reps=5, warmup=1):
-    """Median milliseconds of ``fn`` over ``reps`` runs, by CUDA events."""
-    for _ in range(warmup):
+def host_us(fn, calls=200):
+    """Host microseconds per call of ``fn``, calls back to back: for a call
+    whose kernels take a few microseconds, the host's own work."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
         fn()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        stop = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        stop.record()
-        torch.cuda.synchronize()
-        times.append(start.elapsed_time(stop))
-    return statistics.median(times)
+    us = (time.perf_counter() - t0) / calls * 1e6
+    torch.cuda.synchronize()
+    return us
+
+
+def k3_times(rt, fs, dev, card, shapes):
+    """K3 at the paths' shapes, in each Gaussian transform (Uniform values
+    take none), beside the byte bound: one call through the wrapper by CUDA
+    events (median of 10, the wrapper's host work inside the window), 20
+    calls back to back (per call; the host work hides behind the kernels
+    where they take longer) and the kernel's device time by torch.profiler
+    (20 calls). Returns the first shape's (one call, back to back, device)
+    times by transform."""
+    first = {}
+    for label, S, rows, cols in shapes:
+        bnd = bound(0.0, rows * cols * 4)
+        gaussian = S.dist.family == rt.DenseDistName.Gaussian
+        for transform in fs.FILL_TRANSFORMS[:2 if gaussian else 1]:
+            def fill():
+                return fs.fill_block(S, rows, cols, device=dev,
+                                     transform=transform)
+
+            def twenty():
+                for _ in range(20):
+                    fill()
+
+            ms = time_ms(fill, reps=10)
+            seq = time_ms(twenty) / 20
+            dms = device_ms(fill, "fill_block")
+            if S is shapes[0][1]:
+                first[transform] = (ms, seq, dms)
+            dev_txt = ("device time not measured" if dms is None else
+                       f"device {dms:.4f} ms ({bnd[0] / dms:.0%} of the "
+                       "bound)")
+            print(f"time K3 {label}, {transform if gaussian else 'uniform'}"
+                  f": one call {ms:.4f} ms ({bnd[0] / ms:.0%} of the bound), "
+                  f"back to back {seq:.4f} ms ({bnd[0] / seq:.0%}), "
+                  f"{dev_txt}; bound {bnd[0]:.4f} ms ({bnd[1]}) [{card}]")
+    S = shapes[0][1]
+    blk = torch.ones(4, 4, device=dev)
+    print(f"host time per call, 200 calls back to back on a 4x4 block: "
+          f"fill_block {host_us(lambda: fs.fill_block(S, 4, 4, device=dev)):.1f}"
+          f" us, fill_dense_submat (K3) "
+          f"{host_us(lambda: S.submat(4, 4, 0, 0, device=dev)):.1f} us, one "
+          f"PyTorch op (add_) {host_us(lambda: blk.add_(1.0)):.1f} us "
+          f"[{card}]")
+    return first
 
 
 def bound(flops, nbytes, peak=PEAK_BF16):
@@ -165,21 +222,30 @@ def sass_check(library):
         name = next((k for k in WGMMA_KERNELS if k + "I" in head), None)
         if name:
             found.setdefault(name, []).append("HGMMA" in block)
+        fill = re.search(r"(fill_block(?:_T)?_kernel)I(.+?)EEv", head)
+        if fill:  # K3's static instruction mix, slow paths included
+            ops = re.findall(r"/\*[0-9a-f]{4}\*/\s+(?:@!?U?P\w+\s+)?([A-Z]\w*)",
+                             block)
+            mix = {k: sum(o.startswith(k) for o in ops)
+                   for k in ("MUFU", "SHFL", "STG", "STS", "BRA")}
+            print(f"SASS {fill.group(1)}[{fill.group(2)}]: {len(ops)} "
+                  f"instructions, {mix}")
     for name in WGMMA_KERNELS:
         got = found.get(name, [])
         check(got and all(got), f"{name}: HGMMA missing in the SASS ({got})")
         print(f"SASS: HGMMA in all {len(got)} instantiations of {name}")
 
 
-def entry(name, fn, src, line, launches, err, ms, plain, bnd, lib):
+def entry(name, fn, src, line, launches, err, ms, plain, bnd, lib, **more):
     """One kernel's object of the kernels line: the kernel ``fn`` in
-    csrc/<src>.cu replaces randblas_tpu/ops/<src>.py:<line>."""
+    csrc/<src>.cu replaces randblas_tpu/ops/<src>.py:<line>; ``more`` adds
+    keys."""
     return {"name": f"{fn} ({name})", "route": "cuda",
             "source": f"randblas_tpu_torch/csrc/{src}.cu",
             "replaces": f"randblas_tpu/ops/{src}.py:{line}",
             "launches": launches, "max_abs_err": err, "ms": ms,
             "plain_ms": plain, "bound_ms": bnd[0], "bound_by": bnd[1],
-            "library_ms": lib}
+            "library_ms": lib, **more}
 
 
 def sparse_paths(rt, dev, drive, card):
@@ -333,7 +399,7 @@ def sparse_paths(rt, dev, drive, card):
     coo = rt.COOMatrix.from_arrays(R4, C4, rows4, cols4, vals4, device=dev)
     S4 = rt.DenseSkOp(rt.DenseDist(D4, R4), rt.RNGState.from_key(5))
     B4, _ = drive("(f) sketch_sparse of COO data, run_all.py config 4",
-                  lambda: rt.sketch_sparse(S4, coo, side="left"), {})
+                  lambda: rt.sketch_sparse(S4, coo, side="left"), {"K3": 1})
     dense4 = coo.to_dense()
     f_rel = rel_err(B4, S4.materialize(device=dev) @ dense4)
     check(B4.shape == (D4, C4) and f_rel <= COO_REL_TOL, f"(f) {f_rel}")
@@ -354,7 +420,8 @@ def sparse_paths(rt, dev, drive, card):
     S4b = rt.DenseSkOp(rt.DenseDist(C4, D4), rt.RNGState.from_key(6))
     Bg, g_launches = drive(
         "(g) right sketch of a word-major BlockedELL, config 4b",
-        lambda: rt.sketch_sparse(S4b, bell, side="right"), {"K5": 1})
+        lambda: rt.sketch_sparse(S4b, bell, side="right"),
+        {"K3": 1, "K5": 1})
     check(Bg.shape == (R4, D4), f"(g) output {tuple(Bg.shape)}")
     check(bool(torch.isfinite(Bg).all()), "(g) non-finite values")
     blk = S4b.materialize(device=dev)           # (10000, 512), natural rows
@@ -370,7 +437,7 @@ def sparse_paths(rt, dev, drive, card):
           f"{g_f32:.3g} <= {STAGED_REL_TOL}")
     Bc, _ = drive("(g) the same right sketch of the COO data",
                   lambda: rt.sketch_sparse(S4b, coo, side="right"),
-                  {"K5": 1})
+                  {"K3": 1, "K5": 1})
     c_rel = rel_err(Bc, Bg)
     check(c_rel <= K4_REL_TOL, f"(g) COO route vs BlockedELL: {c_rel}")
     print(f"(g) the COO data through the cached BlockedELL vs the "
@@ -458,6 +525,14 @@ def sparse_paths(rt, dev, drive, card):
     g_ms = time_ms(lambda: rt.sketch_sparse(S4b, bell, side="right"))
     gc_ms = time_ms(lambda: rt.sketch_sparse(S4b, coo, side="right"))
     f_ms = time_ms(lambda: rt.sketch_sparse(S4, coo, side="left"))
+    # the operator blocks of (f) and (g) alone: K3 (the route) and the plain
+    # fill that carried them before it
+    fill_times = {}
+    for label, S_b, r_b, c_b in (("(f)", S4, D4, R4), ("(g)", S4b, C4, D4)):
+        fill_times[label] = (
+            time_ms(lambda: S_b.submat(r_b, c_b, 0, 0, device=dev)),
+            time_ms(lambda: rt.dense.fill_dense_submat_reference(
+                S_b.dist, S_b.seed_state, r_b, c_b, device=dev), reps=3))
     coo_csr = torch.sparse_coo_tensor(
         torch.stack([coo.rows.long(), coo.cols.long()]), coo.vals,
         (R4, C4)).coalesce().to_sparse_csr()
@@ -479,12 +554,23 @@ def sparse_paths(rt, dev, drive, card):
             ("bf16 torch.matmul on the densified S3", k4_mm_ms),
             ("K5 blocked_ell_matmul, config 4b", k5_ms),
             ("K5 plain (one gather pass per slot)", k5_plain_ms),
-            ("(g) sketch_sparse of the BlockedELL (fill + K5)", g_ms),
-            ("(g) sketch_sparse of the COO data, conversion cached", gc_ms),
-            ("(f) sketch_sparse of the COO data from the left", f_ms),
             ("torch.sparse.mm, the data as CUDA CSR, float32 block",
              k5_lib_ms)):
         print(f"time {name}: {ms:.3f} ms [{card}]")
+    # beside each path's time with the plain block fill, as this script
+    # read it on an NVIDIA H100 80GB HBM3 at 700 W before K3 carried it
+    for name, ms, before in (
+            ("(g) sketch_sparse of the BlockedELL (K3 fill + K5)", g_ms, 4.124),
+            ("(g) sketch_sparse of the COO data, conversion cached", gc_ms,
+             4.777),
+            ("(f) sketch_sparse of the COO data from the left (K3 fill)",
+             f_ms, 9.672)):
+        print(f"time {name}: {ms:.3f} ms (with the plain fill: "
+              f"{before:.3f} ms) [{card}]")
+    for label, (k3_fill, plain_fill) in fill_times.items():
+        print(f"time {label}'s operator block alone: through K3 "
+              f"{k3_fill:.3f} ms, by the plain fill {plain_fill:.3f} ms "
+              f"[{card}]")
     print(f"set-up: BlockedELL.from_ell (with ELLMatrix.from_coo) on the host "
           f"{setup_s:.3f} s [{card}]")
     print(f"bounds: K4 {k4_bound[0]:.4f} ms ({k4_bound[1]}), K5 "
@@ -521,14 +607,10 @@ def profile_main(rt, S, A, card):
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         wall_us = five_calls()
-    def device_us(e):  # the name changed across PyTorch versions
-        t = getattr(e, "self_device_time_total", None)
-        return e.self_cuda_time_total if t is None else t
-
     kernels = [e for e in prof.key_averages()
                if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy_us = sum(device_us(e) for e in kernels)
-    k1_us = sum(device_us(e) for e in kernels
+    busy_us = sum(event_device_us(e) for e in kernels)
+    k1_us = sum(event_device_us(e) for e in kernels
                 if "fused_sketch_kernel" in e.key
                 or "fused_sketch_reduce_kernel" in e.key)
     if busy_us == 0:
@@ -622,13 +704,25 @@ def main():
     wrap = rt.RNGState.from_arrays([0xFFFFFFF0, 0xFFFFFFFF, 0xFFFFFFFF, 0],
                                    [5, 0])
     far_ro, far_co = 2 ** 15 - 8, 2 ** 20 - 1001   # row offset * stride > 2^33
+    # K3's edges: 16-byte stores (cols % 4 == 0 in the natural orientation,
+    # rows % 4 == 0 in the transposed one) or 4-byte ones, each shift, the
+    # 4 x 256 tile of a block of fewer than 32 rows, row tiles past grid.y
     k3_cases = [
         ("uniform", op((D, M), "Uniform", 1), (1000, 3000, 7, 5)),
         ("gaussian", op((D, M), key=2), (1000, 3000, 7, 5)),
         ("unaligned co_s", op((D, M), key=3), (64, 4001, 0, 3)),
         ("colmajor natural", op((3000, 500), key=4), (2999, 400, 1, 7)),
+        ("colmajor, rows and cols odd, shift 2", op((3000, 501), key=10),
+         (2998, 397, 2, 3)),
+        ("(g)'s colmajor block", op((C4, D4), key=6), (C4, D4, 0, 0)),
+        ("fewer than 32 rows", op((8, 5000), key=7), (5, 4999, 3, 1)),
+        ("colmajor, fewer than 32 natural rows", op((5000, 8), key=7),
+         (4999, 5, 1, 3)),
         ("threefry", op((D, M), "Uniform", 5, "threefry4x32"),
          (100, 999, 3, 2)),
+        ("threefry gaussian colmajor", op((3000, 500), key=11,
+                                          rng="threefry4x32"),
+         (2000, 300, 5, 9)),
         ("offset > 2^32 uniform", op((2 ** 15, 2 ** 20), "Uniform", 6),
          (8, 1000, far_ro, far_co)),
         ("offset > 2^32 gaussian", op((2 ** 15, 2 ** 20), key=6),
@@ -636,22 +730,76 @@ def main():
         ("counter wrap uniform", op((D, M), "Uniform", state=wrap),
          (16, 4096, 0, 0)),
         ("counter wrap gaussian", op((D, M), state=wrap), (16, 4096, 0, 0)),
+        ("row tiles past grid.y", op((300_000, 8), "Uniform", 8,
+                                     major="Short"), (300_000, 8, 0, 0)),
+        ("transposed row tiles past grid.y",
+         op((4, 2_200_000), "Uniform", 9, major="Short"),
+         (4, 2_200_000, 0, 0)),
     ]
-    for name, S, (r, c, ro, co) in k3_cases:
-        got = fs.fill_block(S, r, c, ro, co, device=dev)
-        want = fs.fill_block_reference(S, r, c, ro, co, device=dev)
+
+    def k3_case(what, S, r, c, ro, co, transform):
+        got = fs.fill_block(S, r, c, ro, co, device=dev, transform=transform)
+        want = fs.fill_block_reference(S, r, c, ro, co, device=dev,
+                                       transform=transform)
         torch.cuda.synchronize()
-        check(got.shape == (r, c), f"K3 {name}: shape {tuple(got.shape)}")
-        check(bool(torch.isfinite(got).all()), f"K3 {name}: non-finite")
+        what = f"K3 {what} {transform} ({r}x{c} at {ro},{co})"
+        check(got.shape == want.shape and got.is_contiguous(),
+              f"{what}: shape {tuple(got.shape)}")
+        check(bool(torch.isfinite(got).all()), f"{what}: non-finite")
         err = (got - want).abs().max().item()
-        if S.dist.family == rt.DenseDistName.Uniform:
-            check(torch.equal(got, want), f"K3 {name}: not bitwise ({err})")
-            print(f"K3 {name}: bitwise equal ({r}x{c} at {ro},{co})")
+        if S.dist.family == rt.DenseDistName.Uniform or transform == "boxmul":
+            check(torch.equal(got, want), f"{what}: not bitwise ({err})")
+            print(f"{what}: bitwise equal")
         else:
-            check(err <= GAUSS_ABS_TOL, f"K3 {name}: max abs err {err}")
-            print(f"K3 {name}: max abs err {err:.3g} <= {GAUSS_ABS_TOL} "
-                  f"({r}x{c} at {ro},{co}; bitwise: "
-                  f"{torch.equal(got, want)})")
+            check(err <= GAUSS_ABS_TOL, f"{what}: max abs err {err}")
+            print(f"{what}: max abs err {err:.3g} <= {GAUSS_ABS_TOL}"
+                  f" (bitwise: {torch.equal(got, want)})")
+        return got
+
+    # both orientations: a ColMajor-natural block comes out in math
+    # orientation (fill_block_T_kernel); its natural block is the block of
+    # the transposed operator, which is RowMajor-natural (fill_block_kernel)
+    for name, S, (r, c, ro, co) in k3_cases:
+        colmajor = rt.dist_to_layout(S.dist) == rt.Layout.ColMajor
+        for transform in fs.FILL_TRANSFORMS:
+            got = k3_case(name, S, r, c, ro, co, transform)
+            if colmajor:
+                nat = k3_case(f"{name}, natural orientation", transposed(S),
+                              c, r, co, ro, transform)
+                check(torch.equal(nat.T, got), f"K3 {name} {transform}: the "
+                      "natural block transposed is not the math block")
+                print(f"K3 {name} {transform}: the natural block transposed "
+                      "is the math block, bit for bit")
+            del got
+
+    # -- phase 3b: the lazy fill on the card (K3) against the plain fill --
+    fill_cases = k3_cases + [
+        ("colmajor wide+Short, unaligned", op((500, 3000), key=12,
+                                              major="Short"),
+         (497, 2990, 3, 7)),
+        ("philox2x32: the plain fill", op((D, 4096), key=13,
+                                          rng="philox2x32"),
+         (100, 999, 3, 2)),
+    ]
+    for name, S, (r, c, ro, co) in fill_cases:
+        args = (S.dist, S.seed_state, r, c, ro, co)
+        kernel = fs.fill_block_supported(S.dist, torch.float32,
+                                         S.seed_state.rng)
+        for dtype in (torch.float32, torch.float64, torch.bfloat16):
+            n0 = fs.fill_block.launches
+            got = rt.fill_dense_submat(*args, dtype, dev)
+            launched = fs.fill_block.launches - n0
+            want = rt.dense.fill_dense_submat_reference(*args, dtype, dev)
+            torch.cuda.synchronize()
+            what = f"fill_dense_submat {name} {str(dtype)[6:]}"
+            check(launched == int(kernel), f"{what}: K3 launched {launched}")
+            check(got.dtype == dtype and got.is_contiguous()
+                  and tuple(got.shape) == (r, c), f"{what}: {got.shape}")
+            check(torch.equal(got, want), f"{what}: not bitwise, max abs "
+                  f"err {abs_err(got, want)}")
+        print(f"fill_dense_submat {name} ({r}x{c} at {ro},{co}): float32, "
+              f"float64 and bf16 bitwise equal to the plain fill; K3 "
+              f"{'once a call' if kernel else 'not launched'}")
 
     # -- phase 4: the main path through the public entry point -----------
     S = op((D, M))
@@ -679,9 +827,26 @@ def main():
         with rt.flags(use_fused=False, use_kernel_fill=True):
             return rt.sketch_general(S, A, side="left")
 
-    # off the main path: the staged route with the kernel fill (K3), through
-    # the same entry point
-    B_staged, staged_launches = drive(
+    def staged():
+        with rt.flags(use_fused=False):
+            return rt.sketch_general(S, A, side="left")
+
+    # off the main path: the staged route, which fills through K3 with the
+    # staged fill's transform, or with the TPU kernel's under
+    # use_kernel_fill, through the same entry point
+    B_plain_fill, staged_launches = drive("staged route", staged,
+                                          {"K1": 0, "K2": 0, "K3": 1})
+    B_ref_fill = torch.matmul(
+        rt.dense.fill_dense_submat_reference(S.dist, S.seed_state, D, M,
+                                             device=dev), A)
+    torch.cuda.synchronize()
+    staged_err = rel_err(B_plain_fill, B_ref_fill)
+    check(staged_err <= F32_REL_TOL, f"staged route: {staged_err}")
+    print(f"staged route (K3, the staged fill's transform) vs the product of "
+          f"the plain fill: normalised {staged_err:.3g} <= {F32_REL_TOL} "
+          f"(bitwise: {torch.equal(B_plain_fill, B_ref_fill)})")
+    del B_plain_fill, B_ref_fill
+    B_staged, _ = drive(
         "staged route with use_kernel_fill", staged_fill,
         {"K1": 0, "K2": 0, "K3": 1})
 
@@ -882,9 +1047,9 @@ def main():
     S_sq = op((2048, 2048), key=9)            # square+Long: ColMajor
     A_sq = A[:2048, :512].clone().requires_grad_(True)
     G_sq = G[:, :512].repeat(2, 1).contiguous()
-    drive("square dist forward (K2) and staged backward",
+    drive("square dist forward (K2) and staged backward (K3 fill)",
           lambda: rt.sketch_general(S_sq, A_sq).backward(G_sq),
-          {"K1": 0, "K2": 1, "K3": 0})
+          {"K1": 0, "K2": 1, "K3": 1})
     sq_ref = S_sq.materialize(device=dev).T @ G_sq
     sq_rel = rel_err(A_sq.grad, sq_ref)
     check(sq_rel <= F32_REL_TOL, f"square backward: rel err {sq_rel}")
@@ -901,10 +1066,6 @@ def main():
     A_bf = A.to(torch.bfloat16)
     k1_lib_ms = time_ms(lambda: torch.matmul(S_bf, A_bf))
     del S_bf
-
-    def staged():
-        with rt.flags(use_fused=False):
-            return rt.sketch_general(S, A, side="left")
 
     staged_ms = time_ms(staged, reps=3)
 
@@ -934,12 +1095,14 @@ def main():
     d_lib_ms = time_ms(lambda: torch.matmul(A2_bf, S2_bf))
     del S2_bf, A2_bf
 
-    k3_ms = time_ms(lambda: fs.fill_block(S, D, M, device=dev))
-    k3_plain_ms = time_ms(
-        lambda: fs.fill_block_reference(S, D, M, device=dev), reps=3)
-    k3_err = abs_err(fs.fill_block(S, D, M, device=dev),
-                     fs.fill_block_reference(S, D, M, device=dev))
-    check(k3_err <= GAUSS_ABS_TOL, f"K3 main-shape fill: {k3_err}")
+    # K3 as the staged route runs it: the staged fill's transform at D x M
+    k3_plain_ms = time_ms(lambda: fs.fill_block_reference(
+        S, D, M, device=dev, transform="boxmul"), reps=3)
+    k3_got = fs.fill_block(S, D, M, device=dev, transform="boxmul")
+    k3_want = fs.fill_block_reference(S, D, M, device=dev, transform="boxmul")
+    k3_err = abs_err(k3_got, k3_want)
+    check(torch.equal(k3_got, k3_want), f"K3 main-shape fill: {k3_err}")
+    del k3_got, k3_want
 
     f32 = 4
     k1_bound = bound(flops, (M * N + D * N) * f32)
@@ -949,7 +1112,7 @@ def main():
             ("main path sketch_general (K1 route)", main_ms, k1_lib_ms, 1),
             ("K1 fused_sketch wrapper", k1_ms, k1_lib_ms, 1),
             ("K1 plain (fill + bf16 round + fp32 matmul)", plain_ms, None, 1),
-            ("staged route (plain fill + fp32 matmul)", staged_ms, None, 1),
+            ("staged route (K3 fill + fp32 matmul)", staged_ms, None, 1),
             ("K2 wrapper at the backward shape 65536x1024@1024x4096", k2_ms,
              k2_lib_ms, 1),
             ("K2 plain at the backward shape", k2_plain_ms, None, 1),
@@ -962,16 +1125,26 @@ def main():
         lib_txt = "" if lib is None else f"; bf16 torch.matmul {lib:.3f} ms"
         print(f"time {name}: {ms:.3f} ms = "
               f"{work * flops / ms / 1e9:.2f} TFLOP/s{lib_txt} [{card}]")
-    print(f"time K3 fill_block_kernel {D}x{M}: {k3_ms:.3f} ms; plain fill "
-          f"{k3_plain_ms:.3f} ms [{card}]")
+    print(f"time K3's plain version {D}x{M}, boxmul: {k3_plain_ms:.3f} ms "
+          f"[{card}]")
+    k3_first = k3_times(rt, fs, dev, card, [
+        (f"{D}x{M} Gaussian", S, D, M),
+        (f"{D}x{M} Uniform", op((D, M), "Uniform", 1), D, M),
+        (f"(f)'s {D4}x{R4} Gaussian", op((D4, R4), key=5), D4, R4),
+        (f"(g)'s ColMajor {C4}x{D4} Gaussian, math orientation",
+         op((C4, D4), key=6), C4, D4)])
     print(f"bounds: K1 {k1_bound[0]:.4f} ms ({k1_bound[1]}), K2 "
           f"{k2_bound[0]:.4f} ms ({k2_bound[1]}), K3 {k3_bound[0]:.4f} ms "
           f"({k3_bound[1]}), at {PEAK_BF16 / 1e12:.0f} TFLOP/s bf16 and "
           f"{PEAK_BYTES / 1e12:.2f} TB/s")
     profile_main(rt, S, A, card)
 
+    del A, G, A2, S_c
+    torch.cuda.empty_cache()
+    sparse_kernels = sparse_paths(rt, dev, drive, card)
     # launches: K1 on the main path, K2 on its backward pass (a), K3 on the
-    # staged use_kernel_fill run
+    # staged route, whose fill the K3 entry's numbers time
+    k3_ms, k3_seq_ms, k3_dev_ms = k3_first["boxmul"]
     kernels = [
         entry("K1", "fused_sketch_kernel", "fused_sketch", 127,
               main_launches["K1"], k1_abs, k1_ms, plain_ms, k1_bound,
@@ -981,11 +1154,8 @@ def main():
               k2_lib_ms),
         entry("K3", "fill_block_kernel", "fused_sketch", 446,
               staged_launches["K3"], k3_err, k3_ms, k3_plain_ms, k3_bound,
-              None),
-    ]
-    del A, G, A2, S_c
-    torch.cuda.empty_cache()
-    kernels += sparse_paths(rt, dev, drive, card)
+              None, device_ms=k3_dev_ms, seq_ms=k3_seq_ms),
+    ] + sparse_kernels
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

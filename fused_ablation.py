@@ -35,15 +35,14 @@ told that clusters of 16 do not run), against the plan's own choice. It
 imports nothing of JAX. The last line is a JSON object of the times.
 """
 
-import ctypes
 import json
 import os
-import statistics
-import subprocess
 import sys
 
 import numpy as np
 import torch
+
+from kernel_variants import bind, build_variants, card_name, time_ms
 
 NO_GENERATION = [
     ("if (gi < d && gc < m) {", "if (gi < d && gc < 0) {"),
@@ -82,50 +81,6 @@ VARIANTS = {
 }
 
 
-def build(_build, root):
-    """One library per variant, compiled in parallel; {name: path}."""
-    source = (_build._PKG / "csrc" / "fused_sketch.cu").read_text()
-    others = [str(s) for s in _build.SOURCES if s.name != "fused_sketch.cu"]
-    os.makedirs(root, exist_ok=True)
-    procs, libs = {}, {}
-    for name, subs in VARIANTS.items():
-        text = source
-        for old, new in subs:
-            if old not in text:
-                raise RuntimeError(f"fused_ablation: {name}: {old!r} is not "
-                                   "in fused_sketch.cu")
-            text = text.replace(old, new)
-        src = os.path.join(root, f"{name}.cu")
-        with open(src, "w") as f:
-            f.write(text)
-        libs[name] = os.path.join(root, f"{name}.so")
-        procs[name] = subprocess.Popen(
-            [_build._nvcc(), *_build.NVCC_FLAGS, "-shared", "-o",
-             libs[name], src, *others],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-    for name, proc in procs.items():
-        out = proc.communicate()[0]
-        if proc.returncode:
-            raise RuntimeError(f"fused_ablation: nvcc failed for {name}:\n"
-                               f"{out}")
-    return libs
-
-
-def time_ms(fn, reps=5):
-    fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        stop = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        stop.record()
-        torch.cuda.synchronize()
-        times.append(start.elapsed_time(stop))
-    return statistics.median(times)
-
-
 def main():
     if not torch.cuda.is_available():
         sys.exit("fused_ablation: torch.cuda.is_available() is False")
@@ -134,11 +89,10 @@ def main():
     from randblas_tpu_torch.ops import _build
     from randblas_tpu_torch.ops import fused_sketch as fs
 
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True).stdout.splitlines()[0]
+    card = card_name()
     print(card)
-    libs = build(_build, str(_build.BUILD_DIR / "ablation"))
+    libs = build_variants("fused_sketch.cu", VARIANTS,
+                          str(_build.BUILD_DIR / "ablation"))
     dev = torch.device("cuda")
     rng = np.random.default_rng(0)
     A = torch.from_numpy(rng.standard_normal((65536, 4096),
@@ -158,9 +112,9 @@ def main():
               f"{times[name]['K2_backward_ms']:.3f} ms [{card}]", flush=True)
 
     for name, path in libs.items():
-        _build._lib = _build._bind(ctypes.CDLL(path))
+        bind(path)
         record(name)
-    _build._lib = _build._bind(ctypes.CDLL(libs["full"]))
+    bind(libs["full"])
     counts = dict(fs.max_active_clusters(dev))
     fs.max_active_clusters = lambda device: {**counts, 16: 0}
     for label, shape in (("K1", (1024, 65536, 4096)),

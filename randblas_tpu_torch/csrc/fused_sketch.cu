@@ -25,15 +25,18 @@
 // sketch onto a ColMajor-natural transposed operator, and the backward pass
 // of K1.
 //
-// K3 fill_block_kernel replaces randblas_tpu/ops/fused_sketch.py::_kernel_fill
-// (reached through _fill_call / pallas_fill_block): generation only, a
-// (rows, cols) natural-orientation block of S written in natural row order.
+// K3 fill_block_kernel and fill_block_T_kernel replace
+// randblas_tpu/ops/fused_sketch.py:446 ::_kernel_fill (reached through
+// _fill_call / pallas_fill_block): generation only, a (rows, cols) block of
+// S in its natural orientation, or in the math layout of a ColMajor-natural
+// block (the natural block transposed), with the TPU kernel's Gaussian
+// transform or the staged fill's. Its design is in the K3 section below.
 //
-// All share one device generator, gen4: (seed, counter offset) -> four
-// float32 values, the same arithmetic as the plain PyTorch versions in
-// ops/fused_sketch.py (every multiply and add is rounded on its own, with
-// __fmul_rn / __fadd_rn, so nothing is contracted into an FMA; logf, sqrtf,
-// sinf and cosf are the accurate versions: build without --use_fast_math).
+// All share one counter-based generator, words4, and the same arithmetic
+// as the plain PyTorch versions in ops/fused_sketch.py and ops/dense_fill.py
+// (every multiply and add is rounded on its own, with __fmul_rn /
+// __fadd_rn, so nothing is contracted into an FMA; logf, sqrtf, sinf, cosf
+// and sincosf are the accurate versions: build without --use_fast_math).
 //
 // What bounds K1 and K2 on the H100, and what this design does about it:
 // - Generation. The product alone is tensor-core work (2 d m n flops); the
@@ -220,44 +223,40 @@ __device__ __forceinline__ float sinpi_half(float w) {
   return __fmul_rn(w, p);
 }
 
-// Box-Muller on two words. FAST: the polynomial sincospi (K1); otherwise
-// sinf/cosf of pi * u (K3).
-template <bool FAST>
-__device__ __forceinline__ void boxmul(uint32_t a, uint32_t b, float& x,
-                                       float& y) {
+// Box-Muller on two words with the polynomial sincospi (K1, K2)
+__device__ __forceinline__ void boxmul_fast(uint32_t a, uint32_t b, float& x,
+                                            float& y) {
   const float u = uneg11_i32((int32_t)a);
   const float r = sqrtf(__fmul_rn(-2.0f, logf(u01_i32((int32_t)b))));
-  float s, c;
-  if (FAST) {
-    const float au = fabsf(u);
-    const float ws =
-        au > 0.5f ? (u >= 0.0f ? __fsub_rn(1.0f, au) : __fsub_rn(au, 1.0f))
-                  : u;
-    s = sinpi_half(ws);
-    c = sinpi_half(__fsub_rn(0.5f, au));
-  } else {
-    const float ang = __fmul_rn(kPi, u);
-    s = sinf(ang);
-    c = cosf(ang);
-  }
-  x = __fmul_rn(s, r);
-  y = __fmul_rn(c, r);
+  const float au = fabsf(u);
+  const float ws =
+      au > 0.5f ? (u >= 0.0f ? __fsub_rn(1.0f, au) : __fsub_rn(au, 1.0f)) : u;
+  x = __fmul_rn(sinpi_half(ws), r);
+  y = __fmul_rn(sinpi_half(__fsub_rn(0.5f, au)), r);
 }
 
-// the four values of the counter block at seed + off
-template <int RNG, bool GAUSS, bool FAST>
-__device__ __forceinline__ void gen4(const Seed& seed, uint64_t off,
-                                     float v[4]) {
-  uint32_t x[4];
+// the generator's four output words of the counter block at seed + off
+template <int RNG>
+__device__ __forceinline__ void words4(const Seed& seed, uint64_t off,
+                                       uint32_t x[4]) {
   counter_at(seed, off, x);
   if (RNG == kPhilox4x32) {
     philox4x32_10(x, seed.k[0], seed.k[1]);
   } else {
     threefry4x32_20(x, seed.k);
   }
+}
+
+// the four values of the counter block at seed + off, as K1 and K2 use
+// them
+template <int RNG, bool GAUSS>
+__device__ __forceinline__ void gen4(const Seed& seed, uint64_t off,
+                                     float v[4]) {
+  uint32_t x[4];
+  words4<RNG>(seed, off, x);
   if (GAUSS) {
-    boxmul<FAST>(x[0], x[1], v[0], v[1]);
-    boxmul<FAST>(x[2], x[3], v[2], v[3]);
+    boxmul_fast(x[0], x[1], v[0], v[1]);
+    boxmul_fast(x[2], x[3], v[2], v[3]);
   } else {
 #pragma unroll
     for (int l = 0; l < 4; ++l) v[l] = __fmul_rn(uneg11_i32((int32_t)x[l]), kSqrt3);
@@ -716,7 +715,7 @@ __device__ __forceinline__ void sketch_tile(const TA* __restrict__ a,
           const int64_t gi = i0 + i, gc = k0 + 4 * b;
           float v[4] = {0.0f, 0.0f, 0.0f, 0.0f};
           if (gi < d && gc < m) {
-            gen4<RNG, GAUSS, true>(
+            gen4<RNG, GAUSS>(
                 seed, (uint64_t)gi * ctr_stride + (uint64_t)(gc >> 2), v);
           }
 #pragma unroll
@@ -737,7 +736,7 @@ __device__ __forceinline__ void sketch_tile(const TA* __restrict__ a,
           const int64_t rr = i0 + 4 * b - shift;  // output row of lane 0
           float v[4] = {0.0f, 0.0f, 0.0f, 0.0f};
           if (gc < m && rr + 3 >= 0 && rr < d) {
-            gen4<RNG, GAUSS, true>(
+            gen4<RNG, GAUSS>(
                 seed, (uint64_t)gc * ctr_stride + (uint64_t)((i0 >> 2) + b),
                 v);
           }
@@ -803,25 +802,211 @@ __global__ void fused_sketch_reduce_kernel(const float* __restrict__ ws,
 }
 
 // ---------------------------------------------------------------- K3 ----
+//
+// The block's natural element (r, c), 0 <= r < rows, 0 <= c < cols, is lane
+// (c + shift) % 4 of the counter block at seed + r * ctr_stride +
+// (c + shift) / 4. K3 writes it to out[r * cols + c] (the natural
+// orientation, fill_block_kernel) or to out[c * rows + r]
+// (fill_block_T_kernel: the math layout of a ColMajor-natural block, whose
+// natural rows are the operator's columns).
+//
+// What bounds K3 on the H100, and what this design does about it:
+// - Bytes. It reads nothing and writes rows * cols floats once: 0.080 ms
+//   for 1024 x 65536 at 3.35 TB/s.
+// - Operations. A Philox4x32-10 (or Threefry4x32-20) block per four values
+//   on the integer pipe, and for Gaussian values two Box-Muller transforms
+//   with the accurate logf and sqrtf and one sincosf (one argument
+//   reduction for both values, and the same bits as sinf and cosf). At
+//   1024 x 65536 this work alone takes about as long as the stores, so
+//   the two have to overlap.
+// - Natural orientation: no shared memory and no barrier, so generation
+//   and stores interleave freely across warps. A warp generates 32
+//   consecutive counter blocks of a row. Output quad q (columns 4q to
+//   4q + 3) holds lanes shift..3 of block q and lanes 0..shift-1 of block
+//   q + 1, which one shuffle brings from the next lane; so a warp stores
+//   the 31 quads (32 when shift == 0) whose blocks it holds: 512 contiguous
+//   bytes per warp and row, as 16-byte stores where the rows allow them
+//   (cols % 4 == 0, a 16-byte aligned `out`) and 4-byte stores otherwise.
+//   Each thread generates FILL_ROWS blocks, one per row, whose independent
+//   chains the scheduler interleaves; their counter offsets are 64-bit adds
+//   of ctr_stride (no division or modulo per block).
+// - Transposed orientation: a CTA stages a tile of TR natural rows x SEG
+//   counter blocks in shared memory (32 x 32, or 4 x 256 for a block of
+//   fewer than 32 natural rows), the value of natural column c at slot
+//   c - (4 b0 - 4) (b0 the tile's first counter block). A tile's column is
+//   an output row of TR values (128 bytes for TR = 32), written four rows a
+//   thread (rows % 4 == 0) or one; the tile's row stride of 4 SEG + 5
+//   floats (5 mod 32 banks) keeps these column reads free of bank
+//   conflicts.
+// - The grid: runs of counter blocks on grid.x, rows (or row tiles) on
+//   grid.y; each CTA loops gridDim.y apart past 65535.
+// The Gaussian transform is a template argument: the TPU kernel's
+// (kBoxmulI32, u01 on the signed view of the word) or the staged fill's
+// (kBoxmul, u01 on the unsigned word). `scale` multiplies Uniform values by
+// sqrt(3) in float32; without it the caller scales in its own dtype.
 
-// out[r, c] = natural-orientation element (r, c + shift) of the block whose
-// row r, counter block b lives at seed + r * ctr_stride + b
-template <int RNG, bool GAUSS>
-__global__ void fill_block_kernel(float* __restrict__ out, int64_t rows,
-                                  int64_t cols, int shift,
-                                  uint64_t ctr_stride, Seed seed) {
-  const int64_t nblk = (shift + cols + 3) / 4;
-  const int64_t total = rows * nblk;
-  for (int64_t t = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; t < total;
-       t += (int64_t)gridDim.x * blockDim.x) {
-    const int64_t r = t / nblk, b = t % nblk;
-    float v[4];
-    gen4<RNG, GAUSS, false>(seed, (uint64_t)r * ctr_stride + (uint64_t)b, v);
+constexpr int FILL_THREADS = 256;
+constexpr int FILL_WARPS = FILL_THREADS / 32;
+constexpr int FILL_ROWS = 4;   // rows a thread generates (natural)
+constexpr int FILL_BPT = 4;    // counter blocks a thread generates (T)
+constexpr int FILL_TILE = FILL_THREADS * FILL_BPT;  // counter blocks a tile
+constexpr int kBoxmulI32 = 0;
+constexpr int kBoxmul = 1;
+
+// u01 on the unsigned word: w * 2^-32 + 2^-33
+__device__ __forceinline__ float u01_u32(uint32_t w) {
+  return __fadd_rn(__fmul_rn(__uint2float_rn(w), 0x1p-32f), 0x1p-33f);
+}
+
+// Box-Muller on two words: sin and cos of pi * u from one sincosf
+template <int XFORM>
+__device__ __forceinline__ void boxmul_fill(uint32_t a, uint32_t b, float& x,
+                                            float& y) {
+  const float u = uneg11_i32((int32_t)a);
+  const float w = XFORM == kBoxmul ? u01_u32(b) : u01_i32((int32_t)b);
+  const float r = sqrtf(__fmul_rn(-2.0f, logf(w)));
+  float s, c;
+  sincosf(__fmul_rn(kPi, u), &s, &c);
+  x = __fmul_rn(s, r);
+  y = __fmul_rn(c, r);
+}
+
+// the four values of the counter block at seed + off under K3's transform
+template <int RNG, bool GAUSS, int XFORM>
+__device__ __forceinline__ void fill4(const Seed& seed, uint64_t off,
+                                      int scale, float v[4]) {
+  uint32_t x[4];
+  words4<RNG>(seed, off, x);
+  if (GAUSS) {
+    boxmul_fill<XFORM>(x[0], x[1], v[0], v[1]);
+    boxmul_fill<XFORM>(x[2], x[3], v[2], v[3]);
+  } else {
 #pragma unroll
     for (int l = 0; l < 4; ++l) {
-      const int64_t c = 4 * b + l - shift;
-      if (c >= 0 && c < cols) out[r * cols + c] = v[l];
+      v[l] = uneg11_i32((int32_t)x[l]);
+      if (scale) v[l] = __fmul_rn(v[l], kSqrt3);
     }
+  }
+}
+
+// the output quad of a lane: lanes shift..3 of its block, then lanes
+// 0..shift-1 of the next lane's (every lane of the warp takes part)
+__device__ __forceinline__ void realign(const float v[4], int shift,
+                                        float w[4]) {
+  float a[8];
+#pragma unroll
+  for (int l = 0; l < 4; ++l) {
+    a[l] = v[l];
+    a[4 + l] = __shfl_down_sync(0xFFFFFFFFu, v[l], 1);
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    w[i] = (shift & 2) ? ((shift & 1) ? a[i + 3] : a[i + 2])
+                       : ((shift & 1) ? a[i + 1] : a[i]);
+  }
+}
+
+template <int RNG, bool GAUSS, int XFORM>
+__global__ void __launch_bounds__(FILL_THREADS)
+fill_block_kernel(float* __restrict__ out, int64_t rows, int64_t cols,
+                  int shift, uint64_t ctr_stride, Seed seed, int scale,
+                  int vec) {
+  const int lane = threadIdx.x % 32;
+  const int per_warp = shift ? 31 : 32;  // output quads a warp stores
+  // this lane's counter block, and the output quad it stores
+  const int64_t q =
+      ((int64_t)blockIdx.x * FILL_WARPS + threadIdx.x / 32) * per_warp +
+      lane;
+  const int64_t c0 = 4 * q;
+  const bool stores = lane < per_warp && c0 < cols;
+  for (int64_t r0 = (int64_t)blockIdx.y * FILL_ROWS; r0 < rows;
+       r0 += (int64_t)gridDim.y * FILL_ROWS) {
+    float v[FILL_ROWS][4];
+    uint64_t off = (uint64_t)r0 * ctr_stride + (uint64_t)q;
+#pragma unroll
+    for (int k = 0; k < FILL_ROWS; ++k, off += ctr_stride) {
+      fill4<RNG, GAUSS, XFORM>(seed, off, scale, v[k]);  // rows past the
+    }                                                    // edge: never stored
+#pragma unroll
+    for (int k = 0; k < FILL_ROWS; ++k) {
+      float w[4] = {v[k][0], v[k][1], v[k][2], v[k][3]};
+      if (shift) realign(v[k], shift, w);
+      const int64_t r = r0 + k;
+      if (!stores || r >= rows) continue;
+      float* o = out + r * cols + c0;
+      if (vec) {
+        *reinterpret_cast<float4*>(o) = make_float4(w[0], w[1], w[2], w[3]);
+      } else {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          if (c0 + i < cols) o[i] = w[i];
+        }
+      }
+    }
+  }
+}
+
+// a tile of TR rows x SEG counter blocks, staged as TR rows of STRIDE
+// floats: SLOTS = 4 SEG values and one quad of slack for the shift
+template <int SEG_>
+struct FillTile {
+  static constexpr int SEG = SEG_;
+  static constexpr int TR = FILL_TILE / SEG;
+  static constexpr int SLOTS = 4 * SEG + 4;
+  static constexpr int STRIDE = SLOTS + 1;
+};
+
+template <int RNG, bool GAUSS, int XFORM, int SEG>
+__global__ void __launch_bounds__(FILL_THREADS)
+fill_block_T_kernel(float* __restrict__ out, int64_t rows, int64_t cols,
+                    int shift, uint64_t ctr_stride, Seed seed, int scale,
+                    int vec) {
+  using T = FillTile<SEG>;
+  constexpr int kRowStep = FILL_THREADS / T::SEG;  // rows between blocks
+  __shared__ __align__(16) float tile[T::TR * T::STRIDE];
+  const int tid = threadIdx.x;
+  const int j = tid % T::SEG, rl0 = tid / T::SEG;
+  const int64_t b0 = (int64_t)blockIdx.x * T::SEG;
+  const int64_t cb = 4 * b0 - 4;  // the natural column of slot 0
+  // this tile's values fill slots [lo, hi); natural columns from 0 to cols
+  const int lo = 4 - shift, hi = 4 * T::SEG + 4 - shift;
+  const int64_t row_tiles = (rows + T::TR - 1) / T::TR;
+  for (int64_t rt = blockIdx.y; rt < row_tiles; rt += gridDim.y) {
+    const int64_t r0 = rt * T::TR;
+    // 1. block b0 + j of rows r0 + rl0 + k kRowStep into the tile (rows and
+    //    blocks past the block's edges too: their slots are never stored)
+    uint64_t off = (uint64_t)(r0 + rl0) * ctr_stride + (uint64_t)(b0 + j);
+    const uint64_t step = (uint64_t)kRowStep * ctr_stride;
+#pragma unroll
+    for (int k = 0; k < FILL_BPT; ++k, off += step) {
+      float v[4];
+      fill4<RNG, GAUSS, XFORM>(seed, off, scale, v);
+      float* dst = tile + (rl0 + k * kRowStep) * T::STRIDE + 4 * j + lo;
+#pragma unroll
+      for (int l = 0; l < 4; ++l) dst[l] = v[l];
+    }
+    __syncthreads();
+    // 2. output row c = cb + s is the tile's column s
+    if (vec) {  // four rows a thread: rows % 4 == 0, so r + 4 <= rows
+      for (int t = tid; t < T::SLOTS * (T::TR / 4); t += FILL_THREADS) {
+        const int q = t % (T::TR / 4), s = t / (T::TR / 4);
+        const int64_t c = cb + s, r = r0 + 4 * q;
+        if (r >= rows || s < lo || s >= hi || c < 0 || c >= cols) continue;
+        const float* src = tile + 4 * q * T::STRIDE + s;
+        *reinterpret_cast<float4*>(out + c * rows + r) =
+            make_float4(src[0], src[T::STRIDE], src[2 * T::STRIDE],
+                        src[3 * T::STRIDE]);
+      }
+    } else {
+      for (int t = tid; t < T::SLOTS * T::TR; t += FILL_THREADS) {
+        const int rl = t % T::TR, s = t / T::TR;
+        const int64_t c = cb + s, r = r0 + rl;
+        if (r < rows && s >= lo && s < hi && c >= 0 && c < cols) {
+          out[c * rows + r] = tile[rl * T::STRIDE + s];
+        }
+      }
+    }
+    __syncthreads();  // the next row tile rewrites the tile
   }
 }
 
@@ -988,20 +1173,81 @@ cudaError_t launch_fused(const void* a, int64_t sk, int64_t sn, float* ws,
   return launch_split(run, p, ws, out, d, n, alpha, stream);
 }
 
-template <int RNG>
-void launch_fill(float* out, int64_t rows, int64_t cols, int shift,
-                 uint64_t ctr_stride, Seed seed, int gaussian,
-                 cudaStream_t stream) {
-  const int64_t nblk = (shift + cols + 3) / 4;
-  const int64_t want = (rows * nblk + 255) / 256;
-  const unsigned blocks = (unsigned)(want < 132 * 64 ? want : 132 * 64);
-  if (gaussian) {
-    fill_block_kernel<RNG, true><<<blocks, 256, 0, stream>>>(
-        out, rows, cols, shift, ctr_stride, seed);
-  } else {
-    fill_block_kernel<RNG, false><<<blocks, 256, 0, stream>>>(
-        out, rows, cols, shift, ctr_stride, seed);
+// K3 in the natural orientation: grid.x over the output quads, 8 warps of
+// 31 (or 32) quads a CTA; grid.y over the rows, FILL_ROWS a thread
+template <int RNG, bool GAUSS, int XFORM>
+cudaError_t launch_fill(float* out, int64_t rows, int64_t cols, int shift,
+                        uint64_t ctr_stride, Seed seed, int scale,
+                        cudaStream_t stream) {
+  const int64_t per_cta = FILL_WARPS * (shift ? 31 : 32);
+  const int64_t runs = ((cols + 3) / 4 + per_cta - 1) / per_cta;
+  const int64_t row_runs = (rows + FILL_ROWS - 1) / FILL_ROWS;
+  if (runs > 0x7FFFFFFF) return cudaErrorInvalidValue;
+  const bool aligned = reinterpret_cast<uintptr_t>(out) % 16 == 0;
+  const dim3 grid((unsigned)runs,
+                  (unsigned)(row_runs < 65535 ? row_runs : 65535));
+  fill_block_kernel<RNG, GAUSS, XFORM><<<grid, FILL_THREADS, 0, stream>>>(
+      out, rows, cols, shift, ctr_stride, seed, scale,
+      aligned && cols % 4 == 0);
+  return cudaGetLastError();
+}
+
+// K3 in the transposed orientation: a CTA per SEG counter blocks of a row
+// tile, 32 rows of 32 blocks, or 4 rows of 256 for a block of fewer than
+// 32 rows (so that few rows waste little)
+template <int RNG, bool GAUSS, int XFORM, int SEG>
+cudaError_t launch_fill_T_tile(float* out, int64_t rows, int64_t cols,
+                               int shift, uint64_t ctr_stride, Seed seed,
+                               int scale, cudaStream_t stream) {
+  using T = FillTile<SEG>;
+  const int64_t runs = ((shift + cols + 3) / 4 + T::SEG - 1) / T::SEG;
+  const int64_t row_tiles = (rows + T::TR - 1) / T::TR;
+  if (runs > 0x7FFFFFFF) return cudaErrorInvalidValue;
+  const bool aligned = reinterpret_cast<uintptr_t>(out) % 16 == 0;
+  const dim3 grid((unsigned)runs,
+                  (unsigned)(row_tiles < 65535 ? row_tiles : 65535));
+  fill_block_T_kernel<RNG, GAUSS, XFORM, SEG>
+      <<<grid, FILL_THREADS, 0, stream>>>(out, rows, cols, shift, ctr_stride,
+                                          seed, scale,
+                                          aligned && rows % 4 == 0);
+  return cudaGetLastError();
+}
+
+template <int RNG, bool GAUSS, int XFORM>
+cudaError_t launch_fill_T(float* out, int64_t rows, int64_t cols, int shift,
+                          uint64_t ctr_stride, Seed seed, int scale,
+                          cudaStream_t stream) {
+  if (rows < 32) {
+    return launch_fill_T_tile<RNG, GAUSS, XFORM, 256>(
+        out, rows, cols, shift, ctr_stride, seed, scale, stream);
   }
+  return launch_fill_T_tile<RNG, GAUSS, XFORM, 32>(
+      out, rows, cols, shift, ctr_stride, seed, scale, stream);
+}
+
+// the instantiation for the generator, the family, the transform (Uniform
+// values take none of their own) and the orientation
+template <int RNG>
+cudaError_t fill_dispatch(float* out, int64_t rows, int64_t cols, int shift,
+                          uint64_t ctr_stride, Seed seed, int gaussian,
+                          int transform, int transposed, int scale,
+                          cudaStream_t stream) {
+  auto run = [&](auto natural, auto trans) {
+    return transposed ? trans(out, rows, cols, shift, ctr_stride, seed, scale,
+                              stream)
+                      : natural(out, rows, cols, shift, ctr_stride, seed,
+                                scale, stream);
+  };
+  if (!gaussian) {
+    return run(&launch_fill<RNG, false, kBoxmulI32>,
+               &launch_fill_T<RNG, false, kBoxmulI32>);
+  }
+  if (transform == kBoxmul) {
+    return run(&launch_fill<RNG, true, kBoxmul>,
+               &launch_fill_T<RNG, true, kBoxmul>);
+  }
+  return run(&launch_fill<RNG, true, kBoxmulI32>,
+             &launch_fill_T<RNG, true, kBoxmulI32>);
 }
 
 Plan make_plan(const int32_t* v) {
@@ -1089,19 +1335,39 @@ extern "C" int rbt_fused_max_clusters(int cluster, int* count) {
   return (int)cudaOccupancyMaxActiveClusters(count, (void*)kernel, &cfg);
 }
 
+// K3: the (rows, cols) natural block whose row r, counter block b lives at
+// seed + offset + r * ctr_stride + b, its first `shift` values skipped,
+// into `out`: natural (transposed 0) or transposed (1, out is cols x rows).
+// transform 0 is the TPU kernel's Gaussian transform, 1 the staged fill's;
+// scale 1 multiplies Uniform values by sqrt(3).
 extern "C" int rbt_fill_block(float* out, int64_t rows, int64_t cols,
-                              int shift, uint64_t ctr_stride,
+                              int shift, uint64_t ctr_stride, uint64_t offset,
                               const uint32_t* seed_words, int rng,
-                              int gaussian, void* stream) {
+                              int gaussian, int transform, int transposed,
+                              int scale, void* stream) {
   if (rows <= 0 || cols <= 0) return (int)cudaSuccess;
-  if (rng != kPhilox4x32 && rng != kThreefry4x32) return (int)cudaErrorInvalidValue;
-  const Seed seed = make_seed(seed_words);
+  if ((rng != kPhilox4x32 && rng != kThreefry4x32) || shift < 0 ||
+      shift > 3 || (transform != kBoxmulI32 && transform != kBoxmul)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  // the block's first counter, carried across all four words (RNGState.incr)
+  Seed seed = make_seed(seed_words);
+  const uint64_t lo = (((uint64_t)seed.c[1] << 32) | seed.c[0]) + offset;
+  const uint32_t carry = lo < offset ? 1u : 0u;
+  seed.c[0] = (uint32_t)lo;
+  seed.c[1] = (uint32_t)(lo >> 32);
+  seed.c[2] += carry;
+  seed.c[3] += seed.c[2] < carry ? 1u : 0u;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (rng == kPhilox4x32)
-    launch_fill<kPhilox4x32>(out, rows, cols, shift, ctr_stride, seed, gaussian, s);
-  else
-    launch_fill<kThreefry4x32>(out, rows, cols, shift, ctr_stride, seed, gaussian, s);
-  return (int)cudaGetLastError();
+  return (int)(rng == kPhilox4x32
+                   ? fill_dispatch<kPhilox4x32>(out, rows, cols, shift,
+                                                ctr_stride, seed, gaussian,
+                                                transform, transposed, scale,
+                                                s)
+                   : fill_dispatch<kThreefry4x32>(out, rows, cols, shift,
+                                                  ctr_stride, seed, gaussian,
+                                                  transform, transposed,
+                                                  scale, s));
 }
 
 extern "C" const char* rbt_error_string(int code) {

@@ -11,8 +11,9 @@ The invariants carried over from the reference:
    which stream values.
 
 Operators are lazy: ``materialize``/``submat`` fill on request, on the
-device asked for (the card unless ``device="cpu"`` is given), and the fused
-sketch kernels never store the operator.
+device asked for (the card unless ``device="cpu"`` is given; there through
+the fill kernel K3 where it takes the block), and the fused sketch kernels
+never store the operator.
 """
 
 from __future__ import annotations
@@ -26,6 +27,7 @@ import torch
 
 from .base import Layout, MajorAxis, require
 from .ops.dense_fill import fill_colmajor, fill_next_state, fill_rowmajor
+from .ops import fused_sketch
 from .rng.state import RNGState
 
 
@@ -105,33 +107,82 @@ def compute_next_state(dist: DenseDist, state: RNGState) -> RNGState:
     return state.incr((major_len + pad) // ctr_size * minor_len)
 
 
-def fill_dense_submat(dist: DenseDist, state: RNGState, n_rows: int,
-                      n_cols: int, ro_s: int = 0, co_s: int = 0,
-                      dtype=torch.float32, device=None) -> torch.Tensor:
-    """The (ro_s:ro_s+n_rows, co_s:co_s+n_cols) block of the implicit sample
-    of ``dist`` seeded at ``state``, as a contiguous (n_rows, n_cols)
-    tensor on ``device`` (the card by default). Values are made in float32,
-    cast to ``dtype``; Uniform then scales by sqrt(3) in ``dtype``."""
+def _kernel_fill_route(dist: DenseDist, rng: str, device) -> bool:
+    """Whether ``fill_dense_submat`` makes the block by the fill kernel K3:
+    on a CUDA device, for a Gaussian or Uniform distribution seeded with a
+    4x32 generator (Philox4x32-10, Threefry4x32-20). K3 makes the block's
+    float32 values, whatever dtype they are cast to, with the staged fill's
+    Box-Muller, so they are the plain fill's bit for bit. K3 implements no
+    2x32 generator: those keep the plain fill, as does every block on the
+    CPU."""
+    return (torch.device(device).type == "cuda"
+            and fused_sketch.fill_block_supported(dist, torch.float32,
+                                                  rng))
+
+
+def _checked_device(dist: DenseDist, n_rows: int, n_cols: int, ro_s: int,
+                    co_s: int, device) -> torch.device:
     require(dist.family != DenseDistName.BlackBox,
             "fill_dense cannot be called with the BlackBox family")
     require(0 <= ro_s and dist.n_rows >= n_rows + ro_s,
             "row range out of bounds")
     require(0 <= co_s and dist.n_cols >= n_cols + co_s,
             "column range out of bounds")
-    device = default_device(device)
+    return default_device(device)
+
+
+def _plain_values(dist: DenseDist, state: RNGState, n_rows: int,
+                  n_cols: int, ro_s: int, co_s: int, device):
+    """The block's float32 values by the plain fill, unscaled."""
     ma_len = major_axis_length(dist)
     transform = TRANSFORM[dist.family]
     if dist_to_layout(dist) == Layout.ColMajor:
         # generate the transpose in row-major order and flip it
-        vals = fill_colmajor(ma_len, n_cols, n_rows, ro_s + co_s * ma_len,
+        return fill_colmajor(ma_len, n_cols, n_rows, ro_s + co_s * ma_len,
                              state, transform, device)
-    else:
-        vals = fill_rowmajor(ma_len, n_rows, n_cols, ro_s * ma_len + co_s,
-                             state, transform, device)
+    return fill_rowmajor(ma_len, n_rows, n_cols, ro_s * ma_len + co_s, state,
+                         transform, device)
+
+
+def _cast_and_scale(vals: torch.Tensor, dist: DenseDist, dtype):
     vals = vals.to(dtype).contiguous()
     if dist.family == DenseDistName.Uniform:
         vals = vals * torch.tensor(math.sqrt(3.0), dtype=dtype)
     return vals
+
+
+def fill_dense_submat(dist: DenseDist, state: RNGState, n_rows: int,
+                      n_cols: int, ro_s: int = 0, co_s: int = 0,
+                      dtype=torch.float32, device=None) -> torch.Tensor:
+    """The (ro_s:ro_s+n_rows, co_s:co_s+n_cols) block of the implicit sample
+    of ``dist`` seeded at ``state``, as a contiguous (n_rows, n_cols)
+    tensor on ``device`` (the card by default). Values are made in float32,
+    cast to ``dtype``; Uniform then scales by sqrt(3) in ``dtype``.
+
+    On a CUDA device a Gaussian or Uniform block of a 4x32 generator is
+    made in one pass by the fill kernel K3, in math orientation
+    (``_kernel_fill_route``), bit for bit the plain fill; any other block
+    takes the plain fill, ``fill_dense_submat_reference``."""
+    device = _checked_device(dist, n_rows, n_cols, ro_s, co_s, device)
+    if _kernel_fill_route(dist, state.rng, device):
+        vals = fused_sketch._fill(dist, state, n_rows, n_cols, ro_s, co_s,
+                                  device, "boxmul", scale=False)
+    else:
+        vals = _plain_values(dist, state, n_rows, n_cols, ro_s, co_s, device)
+    return _cast_and_scale(vals, dist, dtype)
+
+
+def fill_dense_submat_reference(dist: DenseDist, state: RNGState,
+                                n_rows: int, n_cols: int, ro_s: int = 0,
+                                co_s: int = 0, dtype=torch.float32,
+                                device=None) -> torch.Tensor:
+    """``fill_dense_submat`` by the plain fill (batched generator calls on
+    word tensors, ops/dense_fill.py) on any device: the route's plain
+    version."""
+    device = _checked_device(dist, n_rows, n_cols, ro_s, co_s, device)
+    return _cast_and_scale(
+        _plain_values(dist, state, n_rows, n_cols, ro_s, co_s, device), dist,
+        dtype)
 
 
 def fill_dense(dist: DenseDist, state: RNGState, dtype=torch.float32,

@@ -130,8 +130,8 @@ def _bind(lib):
     lib.rbt_fused_max_clusters.argtypes = [c_int, ctypes.POINTER(c_int)]
     lib.rbt_fused_max_clusters.restype = c_int
     lib.rbt_fill_block.argtypes = [
-        c_void_p, c_int64, c_int64, c_int, ctypes.c_uint64, words, c_int,
-        c_int, c_void_p]
+        c_void_p, c_int64, c_int64, c_int, ctypes.c_uint64, ctypes.c_uint64,
+        words, c_int, c_int, c_int, c_int, c_int, c_void_p]
     lib.rbt_fill_block.restype = c_int
     lib.rbt_saso_sketch.argtypes = [
         c_void_p, c_int, c_int64, c_int64, c_void_p, c_void_p, c_int,

@@ -13,8 +13,11 @@ columns. Replaces the Pallas kernel ``_kernel_T`` (reached through
 ``_fused_call_T``).
 
 K3, ``fill_block``: a (rows, cols) block of S at any offset, generation
-only. Replaces the Pallas kernel ``_kernel_fill`` (reached through
-``_fill_call`` / ``pallas_fill_block``).
+only, contiguous in math orientation. Replaces the Pallas kernel
+``_kernel_fill`` (reached through ``_fill_call`` / ``pallas_fill_block``).
+Besides the TPU kernel's Gaussian transform it has the staged fill's, so
+``dense.fill_dense_submat`` makes every lazy Gaussian or Uniform block of a
+4x32 generator on the card through K3, bit for bit the plain fill.
 
 On a CPU tensor each wrapper runs its plain version, because the tensor
 lies on the CPU; on a CUDA tensor it launches its kernel or raises. Each
@@ -35,9 +38,10 @@ reverse mode only, as in the JAX package.
 
 Numerics, as in the JAX package: K1 and K2 round both operands to bf16 and
 accumulate in float32, and their Gaussian values use the signed-view u01
-and the polynomial sincospi; K3 uses the signed-view u01 and sin/cos.
-Uniform values are exact float arithmetic and equal the staged fill bit for
-bit.
+and the polynomial sincospi; K3 uses sin/cos of pi * u with the
+signed-view u01 ("boxmul_i32") or the unsigned one ("boxmul", the staged
+fill's). Uniform values are exact float arithmetic and equal the staged
+fill bit for bit.
 """
 
 from __future__ import annotations
@@ -478,96 +482,132 @@ def fused_sketch_colmajor_reference(S, A: torch.Tensor, alpha: float = 1.0,
 
 # ------------------------------------------------------------------ K3 ---
 
+# K3's Gaussian transforms (the launcher's codes 0 and 1): the TPU fill
+# kernel's signed-view u01 and the staged fill's unsigned u01, both with
+# sin/cos (rng/transforms.py)
+FILL_TRANSFORMS = ("boxmul_i32", "boxmul")
+
 
 def fill_block_supported(dist, dtype, rng: str) -> bool:
+    """Whether K3 makes a ``dtype`` block of ``dist`` seeded with ``rng``:
+    float32 values of a Gaussian or Uniform operator of a 4x32 generator."""
     from ..dense import DenseDistName
     return (dtype == torch.float32
             and dist.family in (DenseDistName.Gaussian, DenseDistName.Uniform)
             and rng in _RNG_CODES)
 
 
-def _fill_plan(S, rows_s, cols_s, ro_s, co_s):
-    """(base, g_rows, g_cols, shift, ctr_stride, gaussian, colmajor): the
-    block in the natural orientation, its first counter folded into base;
-    an unaligned minor offset starts at the previous counter boundary and
-    skips ``shift`` leading values."""
+class _FillPlan(NamedTuple):
+    """A block in the natural orientation: ``rows`` x ``cols`` values whose
+    row r, counter block b lives at ``state`` + ``offset`` + r *
+    ``ctr_stride`` + b, its first ``shift`` values skipped (an unaligned
+    minor offset starts at the previous counter boundary). ``colmajor``:
+    the natural block is the transposed math block."""
+    state: RNGState
+    offset: int
+    rows: int
+    cols: int
+    shift: int
+    ctr_stride: int
+    gaussian: bool
+    colmajor: bool
+
+
+def _fill_plan(dist, state, rows_s, cols_s, ro_s, co_s,
+               transform) -> _FillPlan:
     from ..dense import DenseDistName, dist_to_layout
-    _check_rng(S.seed_state)
-    if S.dist.family not in (DenseDistName.Gaussian, DenseDistName.Uniform):
+    _check_rng(state)
+    if transform not in FILL_TRANSFORMS:
+        raise ValueError(f"K3's transforms are {FILL_TRANSFORMS}, not "
+                         f"{transform!r}")
+    if dist.family not in (DenseDistName.Gaussian, DenseDistName.Uniform):
         raise ValueError("the fill kernel takes Gaussian or Uniform operators")
-    if not (0 <= ro_s and rows_s + ro_s <= S.dist.n_rows
-            and 0 <= co_s and cols_s + co_s <= S.dist.n_cols):
+    if not (0 <= ro_s and rows_s + ro_s <= dist.n_rows
+            and 0 <= co_s and cols_s + co_s <= dist.n_cols):
         raise ValueError("submatrix out of bounds")
-    colmajor = dist_to_layout(S.dist) == Layout.ColMajor
+    colmajor = dist_to_layout(dist) == Layout.ColMajor
     if colmajor:  # the natural matrix is the transposed parent
         g_rows, g_cols, g_ro, g_co = cols_s, rows_s, co_s, ro_s
-        parent_minor = S.dist.n_rows
+        parent_minor = dist.n_rows
     else:
         g_rows, g_cols, g_ro, g_co = rows_s, cols_s, ro_s, co_s
-        parent_minor = S.dist.n_cols
+        parent_minor = dist.n_cols
     ctr_stride = _ctr_stride(parent_minor)
     shift = g_co % _CTR
-    base = S.seed_state.incr(g_ro * ctr_stride + (g_co - shift) // _CTR)
-    gaussian = S.dist.family == DenseDistName.Gaussian
-    return base, g_rows, g_cols, shift, ctr_stride, gaussian, colmajor
+    offset = g_ro * ctr_stride + (g_co - shift) // _CTR
+    if offset >= 2 ** 64:  # RNGState.incr's limit
+        raise ValueError("counter increments must lie in [0, 2**64)")
+    return _FillPlan(state, offset, g_rows, g_cols, shift, ctr_stride,
+                     dist.family == DenseDistName.Gaussian, colmajor)
 
 
-def _fill_plain(base, rows, cols, shift, ctr_stride, gaussian, device):
-    nblk = (shift + cols + _CTR - 1) // _CTR
-    vals = rowmajor_values(base, rows, nblk, ctr_stride,
-                           "boxmul_i32" if gaussian else "uneg11", device)
-    vals = vals[:, shift:shift + cols]
-    return vals if gaussian else vals * _SQRT3
+def _fill_plain(p: _FillPlan, transform, scale, device):
+    nblk = (p.shift + p.cols + _CTR - 1) // _CTR
+    vals = rowmajor_values(p.state.incr(p.offset), p.rows, nblk,
+                           p.ctr_stride, transform if p.gaussian else "uneg11",
+                           device)
+    vals = vals[:, p.shift:p.shift + p.cols]
+    if scale and not p.gaussian:
+        vals = vals * _SQRT3
+    return (vals.T if p.colmajor else vals).contiguous()
 
 
-def _fill_launch(base, rows, cols, shift, ctr_stride, gaussian, device):
+def _fill_launch(p: _FillPlan, transform, scale, device):
     lib = _build.load()
+    shape = (p.cols, p.rows) if p.colmajor else (p.rows, p.cols)
     with torch.cuda.device(device):
-        out = torch.empty((rows, cols), dtype=torch.float32, device=device)
+        out = torch.empty(shape, dtype=torch.float32, device=device)
         code = lib.rbt_fill_block(
-            out.data_ptr(), rows, cols, shift, ctr_stride, _seed_words(base),
-            _RNG_CODES[base.rng], int(gaussian), _stream(out))
+            out.data_ptr(), p.rows, p.cols, p.shift, p.ctr_stride, p.offset,
+            _seed_words(p.state), _RNG_CODES[p.state.rng], int(p.gaussian),
+            FILL_TRANSFORMS.index(transform), int(p.colmajor), int(scale),
+            _stream(out))
         fill_block.launches += 1
     _build.check(code, "fill_block_kernel launch")
     return out
 
 
-def _orient(blk, colmajor):
-    return blk.T if colmajor else blk
+def _fill(dist, state, rows_s, cols_s, ro_s, co_s, device, transform, scale):
+    """``fill_block`` for the operator of ``dist`` seeded at ``state``: the
+    entry of ``dense.fill_dense_submat``'s route. ``scale``: multiply
+    Uniform values by sqrt(3) in float32; without it the caller scales in
+    its own dtype."""
+    from ..dense import default_device
+    device = default_device(device)
+    p = _fill_plan(dist, state, rows_s, cols_s, ro_s, co_s, transform)
+    if device.type == "cuda":
+        return _fill_launch(p, transform, scale, device)
+    if device.type == "cpu":
+        return _fill_plain(p, transform, scale, device)
+    raise ValueError(f"no fill kernel for {device}")
 
 
 def fill_block(S, rows_s: int, cols_s: int, ro_s: int = 0, co_s: int = 0,
-               device=None) -> torch.Tensor:
-    """The (rows_s, cols_s) float32 block of S at (ro_s, co_s), in math
-    orientation, generated by K3 on a CUDA device (the default) or by the
-    plain fill on the CPU (``device="cpu"``). A ColMajor-natural block
-    comes back as a transposed view."""
-    from ..dense import default_device
-    device = default_device(device)
-    base, g_rows, g_cols, shift, ctr_stride, gaussian, colmajor = \
-        _fill_plan(S, rows_s, cols_s, ro_s, co_s)
-    if device.type == "cuda":
-        blk = _fill_launch(base, g_rows, g_cols, shift, ctr_stride, gaussian,
-                           device)
-    elif device.type == "cpu":
-        blk = _fill_plain(base, g_rows, g_cols, shift, ctr_stride, gaussian,
-                          device)
-    else:
-        raise ValueError(f"no fill kernel for {device}")
-    return _orient(blk, colmajor)
+               device=None, *, transform: str = "boxmul_i32") -> torch.Tensor:
+    """The (rows_s, cols_s) float32 block of the lazy operator S at (ro_s,
+    co_s), contiguous in math orientation, generated by K3 on a CUDA device
+    (the default) or by its plain version on the CPU (``device="cpu"``).
+    K3 writes a RowMajor-natural block as it is generated and a
+    ColMajor-natural one through a transposing tile.
+
+    ``transform`` is the Gaussian transform: "boxmul_i32", the TPU fill
+    kernel's (signed-view u01), or "boxmul", the staged fill's, whose values
+    are ``fill_dense_submat``'s bit for bit. Uniform values are scaled by
+    sqrt(3) in float32."""
+    return _fill(S.dist, S.seed_state, rows_s, cols_s, ro_s, co_s, device,
+                 transform, scale=True)
 
 
 fill_block.launches = 0
 
 
 def fill_block_reference(S, rows_s: int, cols_s: int, ro_s: int = 0,
-                         co_s: int = 0, device=None) -> torch.Tensor:
-    """The plain PyTorch version of K3 on ``device`` (the card by
-    default): the counter-addressed fill with K3's transform (signed-view
-    u01, sin/cos)."""
+                         co_s: int = 0, device=None, *,
+                         transform: str = "boxmul_i32") -> torch.Tensor:
+    """The plain PyTorch version of K3 on ``device`` (the card by default):
+    ``rowmajor_values`` with the same transform, sliced, scaled and
+    transposed as ``fill_block`` does."""
     from ..dense import default_device
-    device = default_device(device)
-    base, g_rows, g_cols, shift, ctr_stride, gaussian, colmajor = \
-        _fill_plan(S, rows_s, cols_s, ro_s, co_s)
-    return _orient(_fill_plain(base, g_rows, g_cols, shift, ctr_stride,
-                               gaussian, device), colmajor)
+    p = _fill_plan(S.dist, S.seed_state, rows_s, cols_s, ro_s, co_s,
+                   transform)
+    return _fill_plain(p, transform, True, default_device(device))

@@ -66,10 +66,14 @@ from .sparse import SparseSkOp
 # no fused route takes raises; False always takes the staged route.
 use_fused = "auto"
 
-# Staged-route fill policy: False (default) fills with the plain PyTorch
-# fill; True fills float32 blocks with the fill kernel K3 on CUDA tensors
-# (its plain version on the CPU). Uniform values are bitwise equal either
-# way; Gaussian values differ by about one ulp (signed-view u01).
+# Staged-route fill transform. On CUDA tensors the staged route fills a
+# lazy Gaussian or Uniform operator block through the fill kernel K3 (the
+# plain fill for 2x32 generators). False (default): the staged fill's
+# Box-Muller, bit for bit the plain fill (dense.fill_dense_submat); True:
+# float32 blocks with the TPU fill kernel's transform (signed-view u01, the
+# counterpart of the JAX package's use_pallas_fill). On the CPU each is the
+# plain version. Uniform values are bitwise equal either way; Gaussian
+# values differ by about one ulp.
 use_kernel_fill = False
 
 # SASO kernel (K4) dispatch policy: "auto" takes K4 on CUDA tensors whenever
@@ -106,11 +110,14 @@ def _as_side(side) -> Side:
 
 def _dense_block(S: DenseSkOp, rows_s: int, cols_s: int, ro_s: int,
                  co_s: int, op_s: Op, dtype, device) -> torch.Tensor:
-    """op_s(submat(S)) as a dense tensor on ``device``."""
+    """op_s(submat(S)) as a dense tensor on ``device``: K3 with the TPU
+    fill kernel's transform under ``use_kernel_fill``, else ``S.submat``
+    (K3 with the staged fill's transform on the card)."""
     from .ops import fused_sketch as fs
     if (S.materialized is None and use_kernel_fill
             and fs.fill_block_supported(S.dist, dtype, S.seed_state.rng)):
-        blk = fs.fill_block(S, rows_s, cols_s, ro_s, co_s, device=device)
+        blk = fs.fill_block(S, rows_s, cols_s, ro_s, co_s, device=device,
+                            transform="boxmul_i32")
     else:
         blk = S.submat(rows_s, cols_s, ro_s, co_s, dtype=dtype,
                        device=device)

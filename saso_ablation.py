@@ -30,15 +30,14 @@ than time a variant that no longer switches anything off. It imports
 nothing of JAX. The last line is a JSON object of the times.
 """
 
-import ctypes
 import json
 import os
-import statistics
-import subprocess
 import sys
 
 import numpy as np
 import torch
+
+from kernel_variants import bind, build_variants, card_name, time_ms
 
 NO_PANEL = [
     ("const int o = sl < k && was ? offset(old[sl * TPITCH + col]) : -1;",
@@ -70,50 +69,6 @@ VARIANTS = {
 D3, M3, N3, K3_NNZ = 1024, 65536, 2048, 8   # run_all.py config 3
 
 
-def build(_build, root):
-    """One library per variant, compiled in parallel; {name: path}."""
-    source = (_build._PKG / "csrc" / "saso_sketch.cu").read_text()
-    others = [str(s) for s in _build.SOURCES if s.name != "saso_sketch.cu"]
-    os.makedirs(root, exist_ok=True)
-    procs, libs = {}, {}
-    for name, subs in VARIANTS.items():
-        text = source
-        for old, new in subs:
-            if old not in text:
-                raise RuntimeError(f"saso_ablation: {name}: {old!r} is not "
-                                   "in saso_sketch.cu")
-            text = text.replace(old, new)
-        src = os.path.join(root, f"{name}.cu")
-        with open(src, "w") as f:
-            f.write(text)
-        libs[name] = os.path.join(root, f"{name}.so")
-        procs[name] = subprocess.Popen(
-            [_build._nvcc(), *_build.NVCC_FLAGS, "-shared", "-o",
-             libs[name], src, *others],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-    for name, proc in procs.items():
-        out = proc.communicate()[0]
-        if proc.returncode:
-            raise RuntimeError(f"saso_ablation: nvcc failed for {name}:\n"
-                               f"{out}")
-    return libs
-
-
-def time_ms(fn, reps=5):
-    fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        stop = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        stop.record()
-        torch.cuda.synchronize()
-        times.append(start.elapsed_time(stop))
-    return statistics.median(times)
-
-
 def main():
     if not torch.cuda.is_available():
         sys.exit("saso_ablation: torch.cuda.is_available() is False")
@@ -122,11 +77,10 @@ def main():
     from randblas_tpu_torch.ops import _build
     from randblas_tpu_torch.ops import saso_sketch as saso
 
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True).stdout.splitlines()[0]
+    card = card_name()
     print(card)
-    libs = build(_build, str(_build.BUILD_DIR / "saso_ablation"))
+    libs = build_variants("saso_sketch.cu", VARIANTS,
+                          str(_build.BUILD_DIR / "saso_ablation"))
     dev = torch.device("cuda")
     A = torch.from_numpy(np.random.default_rng(2).standard_normal(
         (M3, N3), dtype=np.float32)).to(dev)
@@ -135,7 +89,7 @@ def main():
     idx, sgn = s.rows.reshape(M3, K3_NNZ), s.vals.reshape(M3, K3_NNZ)
     times = {}
     for name, path in libs.items():
-        _build._lib = _build._bind(ctypes.CDLL(path))
+        bind(path)
         times[name] = time_ms(lambda: saso.saso_sketch(idx, sgn, A, D3))
         print(f"{name}: K4 {times[name]:.3f} ms [{card}]", flush=True)
     print(f"plan: {saso.launch_plan(D3, M3, N3, saso.max_active_ctas(dev))}")

@@ -327,8 +327,9 @@ def test_compat_layout_helpers_match_jax():
 
 
 def test_every_port_module_imports_with_jax_blocked():
-    """Every module of the port, and chip_smoke.py, imports with jax and
-    the JAX package blocked in sys.modules."""
+    """Every module of the port, chip_smoke.py and the scripts beside it
+    (kernel_variants.py and the ablations) import with jax and the JAX
+    package blocked in sys.modules."""
     import os
     import subprocess
     import sys
@@ -341,7 +342,8 @@ def test_every_port_module_imports_with_jax_blocked():
         "import randblas_tpu_torch as rt\n"
         "names = [m.name for m in pkgutil.walk_packages(rt.__path__, "
         "'randblas_tpu_torch.')]\n"
-        "for name in names + ['chip_smoke']:\n"
+        "for name in names + ['chip_smoke', 'kernel_variants', "
+        "'fused_ablation', 'saso_ablation', 'fill_ablation']:\n"
         "    importlib.import_module(name)\n"
         "print(len(names))\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
