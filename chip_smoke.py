@@ -50,7 +50,31 @@ and the staged route (K3 once, its product against that of the plain
 fill), the staged route with ``use_kernel_fill`` (K3 once, the TPU
 kernel's transform), a square distribution's backward pass (K2 and K3
 once) and a float32 SASO sketch at d=3000 (past the old d limit of K4),
-which takes K4 once. For K1 and K2 it also prints the launch plan
+which takes K4 once. Phase 8 drives the linalg tier and the SRHT and
+tensor sketches at the benchmarks' shapes, each checked and timed (data
+made on the card from ``--seed``, default 0):
+
+- (h) an SRHT sketch ``TrigSkOp(TrigDist(1024, 65536))`` of A (65536,
+  4096) from the left, and the right sketch of A^T with ``op_s="T"``: no
+  kernel (Hadamard stages as matmuls), against the explicit operator's
+  float32 product;
+- (i) ``linalg.rsvd`` of a 32768 x 4096 matrix with planted singular
+  values at rank 256 (oversample 8, two power iterations), with the
+  Gaussian operator (K3 once, for the thin operator) and the SRHT one,
+  against the planted values and float64 ``svdvals``, beside
+  ``torch.svd_lowrank``; and ``linalg.cholqr`` of the rangefinder's sketch
+  with TF32 allowed by the caller;
+- (j) ``linalg.sketch_and_precondition`` of a 131072 x 2048 system of
+  condition ~1e3 at d = 4096, 'saso' (the Fisher–Yates fill, K4 twice: A
+  and b) and 'gaussian' (K1 twice), against float64 ``torch.linalg.lstsq``,
+  beside float32 ``torch.linalg.lstsq``;
+- (k) ``linalg.sketched_tls`` of run_all.py config 1 in float64
+  (``DenseDist(4002, 100000)``, [A b] 100000 x 2001): the staged route, K3
+  once, against exact TLS from the Gram's eigenvectors;
+- (l) ``tensor_sketch`` of two 65536 x 64 factors to d = 1024 (K4 once a
+  factor) against the direct float64 convolution of their CountSketches.
+
+For K1 and K2 it also prints the launch plan
 of the main path and of (b) (tiles, thread-block cluster, grid, contraction
 splits, how many times the operator is generated, and the card's
 cudaOccupancyMaxActiveClusters), K4's plan at (e), whether ``cuobjdump
@@ -80,6 +104,7 @@ It imports nothing of JAX. Its timing helpers are ``kernel_variants.py``'s,
 beside it.
 """
 
+import argparse
 import json
 import os
 import re
@@ -108,6 +133,25 @@ K5_REL_TOL = 1e-6     # K5 vs its plain version: the same products (exact in
                       # float32) summed in the same order; expected bitwise
 COO_REL_TOL = 1e-4    # two float32 products of 20000-term sums in other
                       # orders (index_put_ accumulates with atomics)
+SRHT_REL_TOL = 2e-5   # (h) SRHT vs the explicit operator's float32 product:
+                      # 65536-term sums of +-a in other orders (two stages
+                      # of 256 against one long dot product)
+RSVD_TOL = 1e-4       # (i) top-256 singular values, max abs err / s_1
+                      # (float32 products and SVDs, s_256 = 0.1 s_1)
+ORTH_TOL = 5e-6       # (i) max |Q^T Q - I| of cholqr with TF32 allowed:
+                      # float32 CholQR2 reads ~1e-7, a TF32 Gram ~1e-4
+LSQ_TOL = 1e-2        # (j) ||x - x64|| / ||x64||: CGLS stops at a normal
+                      # residual of 100 eps (1.2e-5); x's error is up to
+                      # cond(A) ~ 1e3 times that
+TLS_SLACK = 2.0       # (k) times the Gaussian sketch's expected error
+TS_REL_TOL = 1e-5     # (l) the FFT's float32 rounding (log d terms)
+# phase 8's shapes: (h) SRHT (d, m, n) at the main shape; (i) rSVD (m, n,
+# rank), benchmarks/linalg_bench.py:46-49; (j) sketch-and-precondition
+# (m, n, d), its bench_ridge / bench_ihs shape; (k) sketched TLS (m, n, d),
+# benchmarks/run_all.py config 1; (l) TensorSketch (m, n, d) of two factors,
+# linalg_bench.py:502-517
+PHASE8 = {"h": (D, M, N), "i": (32768, 4096, 256), "j": (131072, 2048, 4096),
+          "k": (100_000, 2000, 4002), "l": (65536, 64, 1024)}
 PEAK_BF16 = 989e12     # H100 SXM dense bf16 FLOP/s at 700 W (data sheet)
 PEAK_F32 = 67e12       # H100 SXM float32 FLOP/s outside the tensor cores
 PEAK_BYTES = 3.35e12   # H100 SXM HBM3 bytes/s
@@ -588,6 +632,267 @@ def sparse_paths(rt, dev, drive, card):
                   k5_abs, k5_ms, k5_plain_ms, k5_bound, k5_lib_ms)]
 
 
+def srht_explicit(S, dev):
+    """The (d, m) SRHT operator from its signs and indices, entry by entry:
+    S[i, j] = sign_j (-1)^popcount(idx_i & j)."""
+    signs, idx = S._sample(dev)
+    x = idx.long()[:, None] & torch.arange(S.n_cols, device=dev)[None, :]
+    parity = torch.zeros_like(x)
+    for b in range(max(S.dist.padded_cols.bit_length() - 1, 1)):
+        parity ^= (x >> b) & 1
+    return (1 - 2 * parity).to(torch.float32) * signs[None, :]
+
+
+def breakdown(label, fn, card, top=3):
+    """One call of ``fn`` in a torch.profiler window: the card's busy time
+    against the call's wall time (the idle share), and the ``top`` kernels
+    by device time."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = sorted(((event_device_us(e) / 1e3, e.key) for e in
+                      prof.key_averages()
+                      if e.device_type == torch.autograd.DeviceType.CUDA),
+                     reverse=True)
+    busy_ms = sum(ms for ms, _ in kernels)
+    if busy_ms == 0:
+        print(f"profiler {label}: the trace shows no device time")
+        return
+    heads = ", ".join(f"{name[:60]} {ms:.3f} ms"
+                      for ms, name in kernels[:top])
+    idle = max(0.0, 1 - busy_ms / wall_ms)
+    print(f"profiler {label}, one call: device busy {busy_ms:.3f} of "
+          f"{wall_ms:.3f} ms wall (idle share {idle:.3f}); top kernels: "
+          f"{heads} [{card}]")
+
+
+def linalg_paths(rt, dev, drive, card, seed):
+    """Phase 8: the SRHT sketch, randomized SVD, sketch-and-precondition
+    least squares, sketched TLS and TensorSketch at the benchmarks' shapes,
+    each against its plain check, with its launch counts and times (CUDA
+    events, median of 5 after a warm-up). The data are made on the card
+    from ``seed``."""
+    from randblas_tpu_torch import linalg as la
+    from randblas_tpu_torch import skge
+    from randblas_tpu_torch.tensor import _countsketch
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def randn(*shape, dtype=torch.float32):
+        return torch.randn(*shape, generator=gen, device=dev, dtype=dtype)
+
+    def rel(x, ref):
+        return ((x.double() - ref.double()).norm() / ref.double().norm()
+                ).item()
+
+    # -- (h) SRHT sketch at the main shape, left and right --------------
+    dh, mh, nh = PHASE8["h"]
+    Sh = rt.TrigSkOp(rt.TrigDist(dh, mh), rt.RNGState.from_key(seed + 11))
+    Ah = randn(mh, nh)
+    Bh, _ = drive("(h) SRHT sketch, left", lambda: rt.sketch_general(Sh, Ah),
+                  {})
+    check(skge.route_counts == {"srht": 1},
+          f"(h) routes {dict(skge.route_counts)}")
+    Ar = Ah.T                                  # (4096, 65536), a view
+    Bhr, _ = drive("(h) SRHT sketch, right, op_s='T'",
+                   lambda: rt.sketch_general(Sh, Ar, side="right", op_s="T"),
+                   {})
+    check(Bh.shape == (dh, nh) and Bhr.shape == (nh, dh),
+          f"(h) shapes {tuple(Bh.shape)} {tuple(Bhr.shape)}")
+    S_exp = srht_explicit(Sh, dev)
+    ref = S_exp @ Ah                 # float32, TF32 off
+    h_err, hr_err = rel_err(Bh, ref), rel_err(Bhr, ref.T)
+    check(h_err <= SRHT_REL_TOL and hr_err <= SRHT_REL_TOL,
+          f"(h) vs the explicit operator: {h_err}, {hr_err}")
+    print(f"(h) SRHT vs the explicit ({dh}, {mh}) operator's float32 "
+          f"product: left {h_err:.3g}, right {hr_err:.3g} <= "
+          f"{SRHT_REL_TOL} (normalised by max |ref|)")
+    h_ms = time_ms(lambda: rt.sketch_general(Sh, Ah))
+    hr_ms = time_ms(lambda: rt.sketch_general(Sh, Ar, side="right",
+                                              op_s="T"))
+    h_lib = time_ms(lambda: torch.matmul(S_exp, Ah))
+    print(f"time (h) SRHT sketch_general {dh}x{mh} @ {mh}x{nh}: left "
+          f"{h_ms:.3f} ms, right op_s='T' {hr_ms:.3f} ms; the explicit "
+          f"operator's float32 torch.matmul {h_lib:.3f} ms [{card}]")
+    breakdown("(h) SRHT left", lambda: rt.sketch_general(Sh, Ah), card)
+    del Sh, Ah, Ar, Bh, Bhr, S_exp, ref
+
+    # -- (i) rSVD at linalg_bench.py's shape -----------------------------
+    mi, ni, rank = PHASE8["i"]
+    U = torch.linalg.qr(randn(mi, ni)).Q
+    V = torch.linalg.qr(randn(ni, ni)).Q
+    i = torch.arange(ni, device=dev, dtype=torch.float64)
+    # geometric decay 1 -> 0.1 over the top 256, then a 30x gap and
+    # 3e-3 -> 3e-5: rSVD's error on s_256 is ~(s_265 / s_256)^5 ~ 2e-8
+    # (oversample 8, power_iters 2)
+    sig = torch.where(i < rank, 10 ** (-i / rank),
+                      3e-3 * 10 ** (-2 * (i - rank) / (ni - rank))).float()
+    Ai = (U * sig) @ V.T
+    del U, V
+    # the singular values of A, in float64 (cuSOLVER's float32 SVD of A is
+    # the looser reference: its error is printed beside)
+    t0 = time.perf_counter()
+    sv = torch.linalg.svdvals(Ai.double())[:rank].float()
+    sv_s = time.perf_counter() - t0
+    e32 = ((torch.linalg.svdvals(Ai)[:rank] - sig[:rank]).abs().max()
+           / sig[0]).item()
+    print(f"(i) A = U diag(s) V^T, {mi}x{ni}: float64 svdvals of A vs the "
+          f"planted s {((sv - sig[:rank]).abs().max() / sig[0]).item():.3g} "
+          f"({sv_s:.1f} s); float32 svdvals of A vs the planted s {e32:.3g}")
+    st_i = rt.RNGState.from_key(seed + 12)
+    rs = {}
+    for op, expect in (("gaussian", {"K3": 1}), ("srht", {})):
+        (u, s, vt), _ = drive(f"(i) rsvd, {op}",
+                              lambda: la.rsvd(Ai, rank, st_i, operator=op),
+                              expect)
+        check(u.shape == (mi, rank) and vt.shape == (rank, ni)
+              and bool(torch.isfinite(u).all()), f"(i) {op} factors")
+        e_sig = ((s - sig[:rank]).abs().max() / sig[0]).item()
+        e_sv = ((s - sv).abs().max() / sv[0]).item()
+        check(e_sig <= RSVD_TOL and e_sv <= RSVD_TOL,
+              f"(i) {op}: {e_sig}, {e_sv}")
+        rs[op] = time_ms(lambda: la.rsvd(Ai, rank, st_i, operator=op))
+        print(f"(i) rsvd {op}: top-{rank} singular values vs the planted "
+              f"ones {e_sig:.3g}, vs float64 svdvals(A) {e_sv:.3g} <= "
+              f"{RSVD_TOL} (max abs err / s_1); {rs[op]:.3f} ms [{card}]")
+        breakdown(f"(i) rsvd {op}",
+                  lambda: la.rsvd(Ai, rank, st_i, operator=op), card)
+    lib = time_ms(lambda: torch.svd_lowrank(Ai, q=rank + 8, niter=2))
+    s_lib = torch.svd_lowrank(Ai, q=rank + 8, niter=2)[1][:rank]
+    e_lib = ((s_lib - sig[:rank]).abs().max() / sig[0]).item()
+    print(f"time (i) torch.svd_lowrank(A, q={rank + 8}, niter=2) {lib:.3f} "
+          f"ms, its top-{rank} vs the planted {e_lib:.3g} [{card}]")
+    # cholqr with TF32 allowed by the caller: its products stay float32
+    S_i = rt.DenseSkOp(rt.DenseDist(ni, rank + 8), st_i)
+    y = Ai @ S_i.materialize(device=dev)       # the rangefinder's sketch
+    eye = torch.eye(rank + 8, device=dev)
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        q, _ = la.cholqr(y)
+        kept = torch.backends.cuda.matmul.allow_tf32
+        g = y.T @ y                             # a TF32 Gram, for contrast
+        naive, info = torch.linalg.cholesky_ex(0.5 * (g + g.T))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    orth = (q.T @ q - eye).abs().max().item()
+    check(kept, "cholqr did not restore the caller's allow_tf32")
+    check(orth <= ORTH_TOL, f"(i) cholqr under TF32: |Q^T Q - I| {orth}")
+    qn = torch.linalg.solve_triangular(naive, y.T, upper=False).T
+    naive_orth = (qn.T @ qn - eye).abs().max().item()
+    print(f"(i) cholqr of the {mi}x{rank + 8} sketch with allow_tf32 on: "
+          f"max |Q^T Q - I| {orth:.3g} <= {ORTH_TOL}, the flag restored; "
+          f"one CholQR pass on a TF32 Gram: {naive_orth:.3g} (Cholesky info "
+          f"{int(info)})")
+    del Ai, sv, y, q, qn
+
+    # -- (j) sketch-and-precondition least squares -----------------------
+    mj, nj, dj = PHASE8["j"]
+    Aj = randn(mj, nj) * torch.logspace(0, -3, nj, device=dev)  # cond ~1e3
+    bj = Aj @ randn(nj) + 1e-3 * randn(mj)
+    x64 = torch.linalg.lstsq(Aj.double(), bj.double()[:, None]).solution[:, 0]
+    st_j = rt.RNGState.from_key(seed + 13)
+    for op, expect, route in (
+            ("saso", {"K4": 2}, {"sparse_saso_kernel": 2}),
+            ("gaussian", {"K1": 2}, {"left_fused": 2})):
+        (x, iters, _), _ = drive(
+            f"(j) sketch_and_precondition, {op}",
+            lambda: la.sketch_and_precondition(Aj, bj, st_j, operator=op),
+            expect)
+        check(skge.route_counts == route,
+              f"(j) {op} routes {dict(skge.route_counts)}")
+        err = rel(x, x64)
+        check(err <= LSQ_TOL, f"(j) {op}: rel err {err}")
+        ms = time_ms(lambda: la.sketch_and_precondition(Aj, bj, st_j,
+                                                        operator=op))
+        print(f"(j) {op} (d={dj}): {iters} CGLS iterations, x vs float64 "
+              f"torch.linalg.lstsq {err:.3g} <= {LSQ_TOL}; {ms:.3f} ms "
+              f"[{card}]")
+        breakdown(f"(j) {op}", lambda: la.sketch_and_precondition(
+            Aj, bj, st_j, operator=op), card)
+    lib = time_ms(lambda: torch.linalg.lstsq(Aj, bj[:, None]))
+    lib_err = rel(torch.linalg.lstsq(Aj, bj[:, None]).solution[:, 0], x64)
+    Sj = rt.SparseSkOp(rt.SparseDist(dj, mj, vec_nnz=8), st_j)
+    fy = time_ms(lambda: Sj.filled(dev))
+    print(f"time (j) float32 torch.linalg.lstsq {lib:.3f} ms (x vs float64 "
+          f"{lib_err:.3g}); the Fisher-Yates fill of SparseDist({dj}, {mj}, "
+          f"8) alone {fy:.3f} ms [{card}]")
+    del Aj, bj, x64
+
+    # -- (k) sketched TLS in float64, run_all.py config 1 ----------------
+    mk, nk, dk = PHASE8["k"]
+    Ak = randn(mk, nk, dtype=torch.float64)
+    bk = Ak @ randn(nk, dtype=torch.float64) + 1e-2 * randn(
+        mk, dtype=torch.float64)
+    ab = torch.cat([Ak, bk[:, None]], dim=1)
+    del Ak, bk
+    Sk = rt.DenseSkOp(rt.DenseDist(dk, mk), rt.RNGState.from_key(seed + 14),
+                      dtype=torch.float64)
+    xs, _ = drive("(k) sketched_tls, float64", lambda: la.sketched_tls(Sk, ab),
+                  {"K3": 1})
+    check(skge.route_counts == {"left_staged": 1},
+          f"(k) routes {dict(skge.route_counts)}")
+    gram = ab.T @ ab
+    v = torch.linalg.eigh(gram)[1][:, 0]
+    xe = -v[:-1] / v[-1]                        # exact TLS of [A b]
+    r_norm = (ab @ torch.cat([xe, xe.new_ones(1).neg()])).norm()
+    s_min = torch.linalg.eigvalsh(gram[:nk, :nk])[0].sqrt()
+    # Gaussian sketch-and-solve: E ||A (x_s - x)||^2 = n / (d - n - 1)
+    # ||r||^2, so ||x_s - x|| / ||x|| is about sqrt(n / (d - n - 1)) ||r||
+    # / (s_min ||x||); TLS_SLACK times that
+    tls_bound = (TLS_SLACK * (nk / (dk - nk - 1)) ** 0.5 * r_norm
+                 / (s_min * xe.norm())).item()
+    err = rel(xs, xe)
+    check(err <= tls_bound, f"(k) rel err {err} > {tls_bound}")
+    ms = time_ms(lambda: la.sketched_tls(Sk, ab))
+    print(f"(k) sketched TLS ({dk} x {mk} float64 operator, [A b] "
+          f"{mk} x {nk + 1}) vs exact TLS (eigh of the Gram): {err:.3g} <= "
+          f"{tls_bound:.3g}; {ms:.3f} ms [{card}]")
+    breakdown("(k) sketched TLS", lambda: la.sketched_tls(Sk, ab), card)
+    del ab, gram
+
+    # -- (l) TensorSketch at linalg_bench.py's shape ---------------------
+    ml, nl, dl = PHASE8["l"]
+    A1, A2 = randn(ml, nl), randn(ml, nl)
+    st_l = rt.RNGState.from_key(seed + 15)
+    (ts, _), _ = drive("(l) tensor_sketch of two factors",
+                       lambda: rt.tensor_sketch([A1, A2], dl, st_l),
+                       {"K4": 2})
+    check(skge.route_counts == {"sparse_saso_kernel": 2},
+          f"(l) routes {dict(skge.route_counts)}")
+    C1 = _countsketch(dl, ml, st_l).filled(dev)
+    C2 = _countsketch(dl, ml, C1.next_state).filled(dev)
+
+    def conv(cast):
+        """The circular convolution of the factors' CountSketches, in
+        float64, term by term (O(d^2 n))."""
+        c1, c2 = (torch.zeros(dl, nl, dtype=torch.float64, device=dev)
+                  .index_add_(0, C.rows.long(),
+                              C.vals.double()[:, None] * cast(A).double())
+                  for C, A in ((C1, A1), (C2, A2)))
+        r = torch.arange(dl, device=dev)
+        return torch.einsum("ran,an->rn", c2[(r[:, None] - r[None, :]) % dl],
+                            c1)
+
+    # K4 contracts the factors rounded to bf16: the same rounding here
+    ref = conv(lambda A: A.to(torch.bfloat16))
+    err = rel_err(ts, ref)
+    check(err <= TS_REL_TOL, f"(l) vs the direct convolution: {err}")
+    err32 = rel_err(ts, conv(lambda A: A))
+    ms = time_ms(lambda: rt.tensor_sketch([A1, A2], dl, st_l))
+    print(f"(l) tensor_sketch vs the direct float64 convolution of the "
+          f"CountSketches of the bf16-rounded factors: {err:.3g} <= "
+          f"{TS_REL_TOL}; of the float32 factors {err32:.3g}; {ms:.3f} ms "
+          f"[{card}]")
+    breakdown("(l) tensor_sketch",
+              lambda: rt.tensor_sketch([A1, A2], dl, st_l), card)
+
+
 def profile_main(rt, S, A, card):
     """One torch.profiler window over five main-path calls: K1's device
     time per call and the share of the window in which the card ran no
@@ -626,6 +931,10 @@ def profile_main(rt, S, A, card):
 
 
 def main():
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument("--seed", type=int, default=0,
+                        help="seed of the data of paths (h) to (l)")
+    cli = parser.parse_args()
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda.is_available() is False; "
                  "nothing was run")
@@ -1142,6 +1451,8 @@ def main():
     del A, G, A2, S_c
     torch.cuda.empty_cache()
     sparse_kernels = sparse_paths(rt, dev, drive, card)
+    torch.cuda.empty_cache()
+    linalg_paths(rt, dev, drive, card, cli.seed)
     # launches: K1 on the main path, K2 on its backward pass (a), K3 on the
     # staged route, whose fill the K3 entry's numbers time
     k3_ms, k3_seq_ms, k3_dev_ms = k3_first["boxmul"]

@@ -2,15 +2,16 @@
 importing it.
 
 A dense sketch is fully determined by its distribution and its seed state,
-and a lazy sparse one by its distribution and seed too, so these take the
-plain values the JAX package exposes: ``RNGState.to_dict()``, the
-dimensions, ``vec_nnz``, and the enum names (or values). Filled operators
-and sparse containers come across as their numpy arrays. Nothing here
-imports jax.
+and a lazy sparse or SRHT one by its distribution and seed too, so these
+take the plain values the JAX package exposes: ``RNGState.to_dict()``, the
+dimensions, ``vec_nnz``, and the enum names (or values). Filled operators,
+an SRHT operator's cached signs and indices and sparse containers come
+across as their numpy arrays. Nothing here imports jax.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from .base import MajorAxis
@@ -41,12 +42,44 @@ def dist_from_jax(n_rows: int, n_cols: int, family: str,
                      _enum(MajorAxis, major_axis))
 
 
-def skop_from_jax(n_rows: int, n_cols: int, family: str, major_axis: str,
-                  state: dict, dtype=torch.float32) -> DenseSkOp:
+def skop_from_jax(n_rows, n_cols: int = None, family: str = None,
+                  major_axis: str = None, state: dict = None,
+                  dtype=torch.float32, device=None):
     """A lazy DenseSkOp with the same values as the JAX operator built from
-    the same distribution and ``state`` (a ``to_dict()`` snapshot)."""
+    the same distribution and ``state`` (a ``to_dict()`` snapshot).
+
+    Given a JAX TrigSkOp in place of ``n_rows`` (and nothing else but
+    ``dtype`` and ``device``), the TrigSkOp of ``trig_skop_from_jax`` with
+    its distribution, seed and cached signs and indices."""
+    if type(n_rows).__name__ == "TrigSkOp":
+        op = n_rows
+        signs, indices = getattr(op, "_signs", None), getattr(op, "_indices",
+                                                              None)
+        return trig_skop_from_jax(
+            op.dist.n_rows, op.dist.n_cols, op.seed_state.to_dict(),
+            None if signs is None else np.asarray(signs),
+            None if indices is None else np.asarray(indices), dtype=dtype,
+            device=device)
     return DenseSkOp(dist_from_jax(n_rows, n_cols, family, major_axis),
                      state_from_jax(state), dtype=dtype)
+
+
+def trig_skop_from_jax(n_rows: int, n_cols: int, state: dict, signs=None,
+                       indices=None, dtype=torch.float32, device=None):
+    """A TrigSkOp with the same values as the JAX operator of
+    ``TrigDist(n_rows, n_cols)`` seeded at ``state`` (a ``to_dict()``
+    snapshot). Given the JAX operator's cached signs and indices (numpy
+    arrays), it holds them on ``device`` (the card by default); without
+    them it makes its own, bit for bit the same, where it is applied."""
+    from .trig import TrigDist, TrigSkOp
+    dist = TrigDist(int(n_rows), int(n_cols))
+    if signs is None:
+        return TrigSkOp(dist, state_from_jax(state), dtype=dtype)
+    from .sparse_data.base import as_tensor
+    return TrigSkOp(dist, state_from_jax(state),
+                    signs=as_tensor(signs, dtype, device),
+                    indices=as_tensor(indices, torch.int32, device),
+                    dtype=dtype)
 
 
 def sparse_skop_from_jax(n_rows: int, n_cols: int, vec_nnz: int,

@@ -84,6 +84,24 @@ def major_axis_length(d: DenseDist) -> int:
             else min(d.n_rows, d.n_cols))
 
 
+def isometry_scale_factor(d) -> float:
+    """The scale c with E[(c S)^T (c S)] = I for a sample S of ``d``: a
+    DenseDist, a SparseDist or a TrigDist."""
+    from .sparse import SparseDist   # sparse and trig import this module
+    from .trig import TrigDist, trig_isometry_scale
+    if isinstance(d, TrigDist):
+        return trig_isometry_scale(d)
+    if isinstance(d, SparseDist):
+        if d.major_axis == MajorAxis.Short:
+            return d.vec_nnz ** -0.5
+        minor = min(d.n_rows, d.n_cols)
+        major = max(d.n_rows, d.n_cols)
+        return math.sqrt(major / (d.vec_nnz * minor))
+    require(d.family != DenseDistName.BlackBox,
+            "no isometry scale for BlackBox")
+    return min(d.n_rows, d.n_cols) ** -0.5
+
+
 def default_device(device=None) -> torch.device:
     """``device``, or the card when none is given: the fills run on the card
     unless the caller asks for the CPU."""

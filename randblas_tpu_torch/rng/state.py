@@ -126,3 +126,8 @@ class RNGState:
     def __repr__(self) -> str:
         return (f"RNGState<{self.rng}>(counter={list(self.counter)}, "
                 f"key={list(self.key)})")
+
+
+def default_state(key: int = 0, rng: str = DEFAULT_RNG) -> RNGState:
+    """``RNGState.from_key(key, rng)``."""
+    return RNGState.from_key(key, rng)

@@ -1,12 +1,12 @@
 """sketch_general: the primary sketching entry point (counterpart of
-randblas_tpu/skge.py, dense and sparse-sign operators).
+randblas_tpu/skge.py, dense, sparse-sign and SRHT operators).
 
     left:  B_new = alpha * op_s(submat(S)) @ op_a(A) + beta * B
     right: B_new = alpha * op_a(A) @ op_s(submat(S)) + beta * B
 
 A and B are 2-D tensors (row-major, shape == math shape); S is a
-DenseSkOp or a SparseSkOp. Dense routes, tried in this order and each
-counted in ``route_counts``:
+DenseSkOp, a SparseSkOp or a TrigSkOp. Dense routes, tried in this order
+and each counted in ``route_counts``:
 
 - ``left_fused``: a left NoTrans sketch by a lazy RowMajor-natural operator
   goes through the fused kernel K1 (ops/fused_sketch.py), which never
@@ -45,6 +45,10 @@ way:
   one: each output row gathers k data rows.
 - ``sparse_coo``: any other block, or triplets not in the fill's order.
 
+SRHT operators (TrigSkOp) take the route ``srht``: the full operator only,
+no submatrix offsets, by ``lmult``/``lmult_t`` (Hadamard stages as
+``torch.matmul``; no hand-written kernel, as in the JAX package).
+
 No dispatch gate here comes from a TPU measurement; profit gates for the
 H100 are ROADMAP.md item 13.
 """
@@ -59,6 +63,7 @@ import torch
 from .base import MajorAxis, Op, Side, dims_before_op, require
 from .dense import DenseDist, DenseSkOp
 from .sparse import SparseSkOp
+from .trig import TrigSkOp
 
 # Fused-kernel dispatch policy: "auto" takes a fused route (K1 or K2) on
 # CUDA tensors whenever the call qualifies; True forces the fused routes
@@ -201,6 +206,12 @@ def _right_fused_or_none(S: DenseSkOp, a_mat, blk, op_s: Op, alpha):
                         cols_s=cols_s, ro_s=ro_s, co_s=co_s).T
 
 
+def _require_full_trig(S: TrigSkOp, rows_s, cols_s, ro_s, co_s):
+    require(ro_s == 0 and co_s == 0 and (rows_s, cols_s) == S.shape,
+            "TrigSkOp has no submatrix addressing (H mixes all rows); "
+            "apply the full operator")
+
+
 def _saso_kernel_ok(d: int, m: int, k: int, b: torch.Tensor) -> bool:
     """Whether K4 takes a (d, m) wide-SASO product with k slots per column
     on b: its shape gate (the JAX package's: k <= 16, ceil(d / 128) * 128
@@ -276,7 +287,7 @@ def sketch_general(
     """Sketch a general dense matrix A from the left or right.
 
     Args:
-      S: sketching operator (DenseSkOp or SparseSkOp).
+      S: sketching operator (DenseSkOp, SparseSkOp or TrigSkOp).
       A: data matrix, shape = its stored (math) shape; op_a transposes.
       side: 'left'  -> B = alpha op_s(submat(S)) op_a(A) + beta B  (d x n)
             'right' -> B = alpha op_a(A) op_s(submat(S)) + beta B  (n x d)
@@ -288,11 +299,10 @@ def sketch_general(
 
     Returns B_new on A's device.
     """
-    if not isinstance(S, (DenseSkOp, SparseSkOp)):
+    if not isinstance(S, (DenseSkOp, SparseSkOp, TrigSkOp)):
         raise NotImplementedError(
-            f"{type(S).__name__}: randblas_tpu_torch sketches with DenseSkOp "
-            "and SparseSkOp; the SRHT/trig operators are ROADMAP.md Queue 1 "
-            "item 10")
+            f"{type(S).__name__}: randblas_tpu_torch sketches with its own "
+            "DenseSkOp, SparseSkOp and TrigSkOp (SRHT) operators")
     side = _as_side(side)
     op_s = _as_op(op_s)
     op_a = _as_op(op_a)
@@ -312,7 +322,12 @@ def sketch_general(
         rows_s, cols_s = dims_before_op(d, m, op_s)
         require(S.n_rows >= rows_s + ro_s, "S row range out of bounds")
         require(S.n_cols >= cols_s + co_s, "S column range out of bounds")
-        if isinstance(S, SparseSkOp):
+        if isinstance(S, TrigSkOp):
+            _require_full_trig(S, rows_s, cols_s, ro_s, co_s)
+            route = "srht"
+            raw = S.lmult(a_mat) if op_s == Op.NoTrans else S.lmult_t(a_mat)
+            prod = _scaled(alpha, raw.to(dtype))
+        elif isinstance(S, SparseSkOp):
             route, prod = _sparse_left_apply(S, d, m, ro_s, co_s, op_s, a_mat,
                                              alpha)
         elif (fused := _left_fused_or_none(
@@ -338,7 +353,14 @@ def sketch_general(
         rows_s, cols_s = dims_before_op(m, d, op_s)
         require(S.n_rows >= rows_s + ro_s, "S row range out of bounds")
         require(S.n_cols >= cols_s + co_s, "S column range out of bounds")
-        if isinstance(S, SparseSkOp):
+        if isinstance(S, TrigSkOp):
+            _require_full_trig(S, rows_s, cols_s, ro_s, co_s)
+            route_counts["srht"] += 1
+            # A @ op_s(S) = (op_s(S)^T @ A^T)^T
+            raw = (S.lmult_t(a_mat.T) if op_s == Op.NoTrans
+                   else S.lmult(a_mat.T)).T
+            prod = _scaled(alpha, raw.to(dtype))
+        elif isinstance(S, SparseSkOp):
             # A @ op_s(S) = (op_s(S)^T @ A^T)^T: the flipped op folds the
             # transpose into the index roles
             flipped = Op.NoTrans if op_s == Op.Trans else Op.Trans

@@ -275,8 +275,12 @@ def test_lazy_operator_fills_on_the_data_device():
 
 
 def test_trig_operators_still_raise():
+    """An object that is none of the port's operators raises and names
+    them, the SRHT family among them, which sketch_general now takes."""
     with pytest.raises(NotImplementedError, match="SRHT"):
         rt.sketch_general(object(), torch.zeros((3, 3)))
+    S = rt.srht_operator(2, 3, device="cpu")
+    assert rt.sketch_general(S, torch.zeros((3, 3))).shape == (2, 3)
 
 
 def test_saso_reference_is_the_plain_version():

@@ -355,15 +355,17 @@ def test_convert_carries_operators_across():
 
 def test_other_operators_are_not_ported_yet():
     """Operators of other types, here the JAX package's own SparseSkOp,
-    raise and name the trig operators' ROADMAP item; the port's SparseSkOp
-    is taken."""
+    raise and name the port's operator families; the port's SparseSkOp and
+    TrigSkOp are taken."""
     sp = rb.SparseSkOp(rb.SparseDist(8, 64, vec_nnz=2),
                        rb.RNGState.from_key(0))
-    with pytest.raises(NotImplementedError, match="item 10"):
+    with pytest.raises(NotImplementedError, match="TrigSkOp"):
         rt.sketch_general(sp, torch.ones(64, 3))
     tp = rt.SparseSkOp(rt.SparseDist(8, 64, vec_nnz=2),
                        rt.RNGState.from_key(0)).filled(device="cpu")
     assert rt.sketch_general(tp, torch.ones(64, 3)).shape == (8, 3)
+    tt = rt.srht_operator(8, 64, device="cpu")
+    assert rt.sketch_general(tt, torch.ones(64, 3)).shape == (8, 3)
 
 
 def test_sketch_convenience_and_flags_restore():
