@@ -74,6 +74,45 @@ made on the card from ``--seed``, default 0):
 - (l) ``tensor_sketch`` of two 65536 x 64 factors to d = 1024 (K4 once a
   factor) against the direct float64 convolution of their CountSketches.
 
+Phase 9 drives the x64 operators and linalg groups 2-3 at the shapes of
+``benchmarks/linalg_bench.py``, each path with its routes and launch
+counts, its check, its time beside the library call's where there is one,
+and one profiled call (device busy time, idle share, top kernels):
+
+- (m) ``sketch_general`` of a ``DenseDist(1024, 65536)`` operator seeded
+  with Philox4x64, Gaussian and Uniform, on A (65536, 512) float64: the
+  native host engine fills (``dense.x64_engine_counts``), then a float64
+  matmul; no kernel. Row blocks of the native fill against the numpy
+  engine (Uniform bitwise, Gaussian within 2 ulp), Philox4x64 and
+  Threefry4x64; the product against the materialised operator's;
+- (n) ``nystrom_pcg`` (K1 and K3 once) and ``rpcholesky_pcg`` (no kernel)
+  on A = G G^T + 0.1 I, n = 8192, d = rank = 512: the residual and x
+  against a float64 solve, the PCG iterations, whether Nystrom's Cholesky
+  held;
+- (o) ``xtrace``, ``xdiag`` and ``hutchpp`` of the implicit Gram of
+  G (16384, 256) at budget 64 (K3 for the probes) against the same calls
+  on the CPU, and test_tpu_hardware.py's controlled spectrum (n = 1024,
+  budget 96) with its bounds;
+- (p) ``leverage_scores`` (K4 once) of A (524288, 512) against float64
+  QR's, and ``sample_lsq`` (K4 once) at s = 8192 against the float64
+  least-squares residual;
+- (q) ``amm`` of (2048, 262144) x (262144, 2048) at s = 16384 (no kernel)
+  against its error bound;
+- (r) ``random_fourier_features`` of x (65536, 128) to D = 4096 (K2 and K3
+  once) against the formula on the same bf16-rounded operands, and its
+  RBF kernel approximation;
+- (s) ``rsvd_krylov``, ``column_id``, ``cur`` and ``spectral_norm`` on
+  (i)'s planted 32768 x 4096 matrix at rank 256 (K3 once per
+  rangefinder), and the first Krylov block's SVD by ``torch.linalg.svd``
+  beside ``linalg.qb.safe_svd`` (orthogonality and reconstruction);
+- (t) ``sgmres`` (K4 three times) at n = 8192 with its true residual, and
+  ``sketched_eigs`` (K3 once), symmetric and not, on 16 planted
+  eigenvalues against float64 ``eigvalsh``;
+- (u) ``rgs_qr`` of A (65536, 512) and test_tpu_hardware.py's cond 3e7
+  case (K3 once; K1, K2 and K4 never);
+- (v) ``rand_geigh`` on the bench's pencil and on a planted one, and
+  ``rand_eigh``, against float64 ``eigvalsh`` (K3 once).
+
 For K1 and K2 it also prints the launch plan
 of the main path and of (b) (tiles, thread-block cluster, grid, contraction
 splits, how many times the operator is generated, and the card's
@@ -152,6 +191,47 @@ TS_REL_TOL = 1e-5     # (l) the FFT's float32 rounding (log d terms)
 # linalg_bench.py:502-517
 PHASE8 = {"h": (D, M, N), "i": (32768, 4096, 256), "j": (131072, 2048, 4096),
           "k": (100_000, 2000, 4002), "l": (65536, 64, 1024)}
+# phase 9's shapes, benchmarks/linalg_bench.py's unless named: (m) the x64
+# sketch (d, m, n); (n) Nystrom and RPCholesky PCG (n, G's columns, d =
+# rank), :64-79 and :137-151; (o) trace and diagonal (n, G's columns,
+# budget), :255-294; (p) leverage scores and sample_lsq (m, n, s),
+# :220-236; (q) AMM (m, n, p, s), :200-217; (r) random Fourier features
+# (n, dim, D), :238-252; (s) (i)'s planted matrix (m, n, rank); (t) sGMRES
+# and sketched eigenpairs (n, basis, k, eigs basis), :97-135; (u) RGS QR
+# (m, k, block), :421-448; (v) the eigensolvers (n, k), :174-198
+PHASE9 = {"m": (1024, 65536, 512), "n": (8192, 64, 512),
+          "o": (16384, 256, 64), "p": (524288, 512, 8192),
+          "q": (2048, 262144, 2048, 16384), "r": (65536, 128, 4096),
+          "s": (32768, 4096, 256), "t": (8192, 80, 16, 64),
+          "u": (65536, 512, 128), "v": (8192, 32)}
+X64_PROD_TOL = 1e-12  # (m) vs the materialised operator's float64 product
+X64_GAUSS_ULP = 2     # (m) native vs numpy Gaussian: libm's and numpy's sin,
+                      # cos, log a last bit apart, then r * sin rounds once
+                      # more (1 ulp is the JAX package's note, dense.py:49;
+                      # 2 is what a (64, 65536) block shows on the CPU)
+PCG_RES_TOL = 1e-4    # (n) ||(A + mu I) x - b|| / ||b|| (PCG stops at 1e-5)
+PCG_X_TOL = 1e-3      # (n) ||x - x64|| / ||x64||
+TRACE_CPU_TOL = 1e-4  # (o) the card's estimate vs the CPU's, relative
+LEV_RATIO = (0.25, 4.0)     # (p) estimated / exact scores, every row
+LEV_MEDIAN = (0.8, 1.25)    # (p) their median, at embed_factor 8: the
+                            # estimate's bias is ~d / (d - n - 1), 1.33 at
+                            # the default d = 4n and 1.14 at d = 8n
+LSQ_SLACK = 1.2       # (p) sample_lsq's residual / the float64 optimum
+AMM_SLACK = 3.0       # (q) times ||A||_F ||B||_F / sqrt(s)
+RFF_TOL = 1e-3        # (r) vs the formula with K2's plain projection
+                      # (the same bf16 operands), / sqrt(2/D): float32 sums
+                      # of 128 terms of |x w| <= ~60 in another order
+RFF_KERNEL = 5.0      # (r) max |z z^T - exp(-d^2 / 2 bw^2)| * sqrt(D)
+KRYLOV_TOL = 1e-4     # (s) top-256 singular values, max abs err / s_1
+SVD_TOL = 5e-5        # (s) safe_svd: max |U^T U - I| and the reconstruction
+                      # / max |y|: Householder QR of 258 columns in float32
+                      # (n eps = 1.5e-5 at worst)
+ID_SLACK = 10.0       # (s) ID and CUR errors / ||A - A_256||_F
+SPEC_TOL = 1e-2       # (s) spectral_norm's own tol, relative to s_1
+SGMRES_TOL = 1e-4     # (t) true relative residual
+RITZ_TOL = 1e-3       # (t), (v) eigenvalues, max abs err / max |ref|
+RGS_REC_TOL = 1e-5    # (u) ||QR - A|| / ||A||
+RGS_HW = (2e-4, 2e-3)  # (u) cond 3e7: reconstruction, ||Q^T Q - I||_2
 PEAK_BF16 = 989e12     # H100 SXM dense bf16 FLOP/s at 700 W (data sheet)
 PEAK_F32 = 67e12       # H100 SXM float32 FLOP/s outside the tensor cores
 PEAK_BYTES = 3.35e12   # H100 SXM HBM3 bytes/s
@@ -672,6 +752,20 @@ def breakdown(label, fn, card, top=3):
           f"{heads} [{card}]")
 
 
+def planted(randn, m, n, rank):
+    """(A, s): an (m, n) float32 matrix U diag(s) V^T with random
+    orthonormal U, V and planted singular values s: geometric decay 1 ->
+    0.1 over the top ``rank``, then a 30x gap and 3e-3 -> 3e-5. rSVD's
+    error on s_rank is then ~(s_(rank+9) / s_rank)^5 ~ 2e-8 (oversample 8,
+    power_iters 2)."""
+    U = torch.linalg.qr(randn(m, n)).Q
+    V = torch.linalg.qr(randn(n, n)).Q
+    i = torch.arange(n, device=U.device, dtype=torch.float64)
+    sig = torch.where(i < rank, 10 ** (-i / rank),
+                      3e-3 * 10 ** (-2 * (i - rank) / (n - rank))).float()
+    return (U * sig) @ V.T, sig
+
+
 def linalg_paths(rt, dev, drive, card, seed):
     """Phase 8: the SRHT sketch, randomized SVD, sketch-and-precondition
     least squares, sketched TLS and TensorSketch at the benchmarks' shapes,
@@ -725,16 +819,7 @@ def linalg_paths(rt, dev, drive, card, seed):
 
     # -- (i) rSVD at linalg_bench.py's shape -----------------------------
     mi, ni, rank = PHASE8["i"]
-    U = torch.linalg.qr(randn(mi, ni)).Q
-    V = torch.linalg.qr(randn(ni, ni)).Q
-    i = torch.arange(ni, device=dev, dtype=torch.float64)
-    # geometric decay 1 -> 0.1 over the top 256, then a 30x gap and
-    # 3e-3 -> 3e-5: rSVD's error on s_256 is ~(s_265 / s_256)^5 ~ 2e-8
-    # (oversample 8, power_iters 2)
-    sig = torch.where(i < rank, 10 ** (-i / rank),
-                      3e-3 * 10 ** (-2 * (i - rank) / (ni - rank))).float()
-    Ai = (U * sig) @ V.T
-    del U, V
+    Ai, sig = planted(randn, mi, ni, rank)
     # the singular values of A, in float64 (cuSOLVER's float32 SVD of A is
     # the looser reference: its error is printed beside)
     t0 = time.perf_counter()
@@ -893,6 +978,594 @@ def linalg_paths(rt, dev, drive, card, seed):
               lambda: rt.tensor_sketch([A1, A2], dl, st_l), card)
 
 
+def solver_paths(rt, dev, drive, card, seed):
+    """Phase 9: the x64 sketch and linalg groups 2-3 at the benchmarks'
+    shapes, paths (m) to (v), each against its check, with its routes,
+    launch counts, time (CUDA events, median of 5 after a warm-up) beside
+    the library call's where there is one, and one profiled call. The data
+    are made on the card from ``seed``. Each path is a function, so its
+    tensors are freed before the next one starts."""
+    import math
+    from randblas_tpu_torch import dense as tdense
+    from randblas_tpu_torch import linalg as la
+    from randblas_tpu_torch import native, skge
+    import importlib
+    from randblas_tpu_torch.linalg import qb, rgs
+    from randblas_tpu_torch.linalg.embed import make_embedding
+    # the module, not the function of the same name that linalg exports
+    sg = importlib.import_module("randblas_tpu_torch.linalg.sgmres")
+    from randblas_tpu_torch.ops import fused_sketch as fs
+    from randblas_tpu_torch.rng import x64
+
+    gen = torch.Generator(device=dev).manual_seed(seed + 1)
+
+    def randn(*shape, dtype=torch.float32):
+        return torch.randn(*shape, generator=gen, device=dev, dtype=dtype)
+
+    def eye(n, dtype=torch.float32):
+        return torch.eye(n, device=dev, dtype=dtype)
+
+    def rel(x, ref):
+        return ((x.double() - ref.double()).norm() / ref.double().norm()
+                ).item()
+
+    def routes(label, want):
+        check(dict(skge.route_counts) == want,
+              f"{label} routes {dict(skge.route_counts)}, expected {want}")
+
+    def top_abs(w, k):
+        """The k values of largest magnitude, ascending."""
+        return torch.sort(w[torch.argsort(w.abs(), descending=True)[:k]])[0]
+
+    def timed(label, fn, lib=None, lib_name=""):
+        ms = time_ms(fn)
+        lib_txt = ("" if lib is None
+                   else f"; {lib_name} {time_ms(lib):.3f} ms")
+        print(f"time {label}: {ms:.3f} ms{lib_txt} [{card}]")
+        return ms
+
+    # -- (m) the x64 sketch: host fill by the native engine, float64 GEMM --
+    def path_m():
+        dm, mm, nm = PHASE9["m"]
+        check(native.available(), "(m) the native engine did not build "
+              "(make -C native)")
+        Am = randn(mm, nm, dtype=torch.float64)
+        for fam in ("Gaussian", "Uniform"):
+            dist = rt.DenseDist(dm, mm, rt.DenseDistName[fam])
+            Sm = rt.DenseSkOp(dist, rt.RNGState.from_key(seed + 21,
+                                                          "philox4x64"))
+            check(Sm.dtype == torch.float64, f"(m) dtype {Sm.dtype}")
+            tdense.x64_engine_counts.clear()
+            Bm, _ = drive(f"(m) x64 sketch {dm}x{mm} @ {mm}x{nm}, {fam}",
+                          lambda: rt.sketch_general(Sm, Am), {})
+            routes("(m)", {"left_staged": 1})
+            check(dict(tdense.x64_engine_counts) == {"native": 1},
+                  f"(m) engines {dict(tdense.x64_engine_counts)}")
+            S_mat = Sm.materialize(device=dev)
+            err = rel_err(Bm, torch.matmul(S_mat, Am))
+            check(err <= X64_PROD_TOL, f"(m) {fam} product: {err}")
+            for rng, cols in (("philox4x64", mm), ("threefry4x64", 4096)):
+                st = rt.RNGState.from_key(seed + 21, rng)
+                op_ = rt.DenseSkOp(
+                    rt.DenseDist(dm, cols, rt.DenseDistName[fam]), st)
+                rows = min(64, dm)
+                got = op_.submat(rows, cols, 0, 0, device="cpu").numpy()
+                want = x64.fill_rowmajor64(cols, rows, cols, 0, st,
+                                           rt.dense.TRANSFORM[dist.family])
+                if fam == "Uniform":
+                    want = want * np.float64(math.sqrt(3.0))
+                ulps = float(np.max(np.abs(got - want)
+                                    / np.spacing(np.abs(want))))
+                check(ulps == 0 if fam == "Uniform" else ulps <= X64_GAUSS_ULP,
+                      f"(m) {rng} {fam}: native vs numpy {ulps} ulp")
+                print(f"(m) {rng} {fam} ({rows}, {cols}) block: native "
+                      f"engine vs the numpy engine {ulps:.0f} ulp (Uniform "
+                      f"bitwise, "
+                      f"Gaussian <= {X64_GAUSS_ULP})")
+            fill_ms = time_ms(lambda: Sm.materialize(device=dev))
+            prod_ms = time_ms(lambda: torch.matmul(S_mat, Am))
+            host = []
+            for _ in range(5):
+                t0 = time.perf_counter()
+                Sm.materialize(device="cpu")
+                host.append((time.perf_counter() - t0) * 1e3)
+            call_ms = timed(f"(m) x64 sketch_general, {fam}",
+                            lambda: rt.sketch_general(Sm, Am))
+            print(f"(m) {fam}: vs torch.matmul of the materialised operator "
+                  f"{err:.3g} <= {X64_PROD_TOL}; the fill to the card "
+                  f"{fill_ms:.3f} ms, of it the host fill by the native "
+                  f"engine {sorted(host)[2]:.3f} ms (median of 5, host "
+                  f"clock), float64 product {prod_ms:.3f} ms, the call "
+                  f"{call_ms:.3f} ms [{card}]")
+            if fam == "Gaussian":
+                breakdown("(m) x64 sketch", lambda: rt.sketch_general(Sm, Am),
+                          card)
+            del S_mat, Bm
+
+    # -- (n) Nystrom PCG and RPCholesky PCG -------------------------------
+    def path_n():
+        nn, gk, dn = PHASE9["n"]
+        G = randn(nn, gk) / 8.0
+        An = G @ G.T + 0.1 * eye(nn)
+        bn = randn(nn)
+        mu = 1e-3
+        x64n = torch.linalg.solve(An.double() + mu * eye(nn, torch.float64),
+                                  bn.double())
+        st_n = rt.RNGState.from_key(seed + 23)
+        om = rt.DenseSkOp(rt.DenseDist(nn, dn), st_n).materialize(
+            device=dev).double()
+        gram = torch.linalg.eigvalsh(om.T @ An.double() @ om)
+        u, lam, _ = la.nystrom(An, dn, st_n)
+        print(f"(n) nystrom's shifted Cholesky of the Gram (sketch by the "
+              f"right_fused route, K1): "
+              f"{'succeeded' if bool(torch.isfinite(lam).all()) else 'FAILED'}"
+              f"; lam[0] {lam[0].item():.6g}, lam[{gk - 1}] "
+              f"{lam[gk - 1].item():.6g}, lam[{gk}] {lam[gk].item():.6g} "
+              f"(exact: ~{nn / gk:.0f} and 0.1); the Gram Omega^T A Omega's "
+              f"eigenvalues (float64) {gram[0].item():.4g} to "
+              f"{gram[-1].item():.4g}")
+        for name, fn, expect, want_routes in (
+                ("nystrom_pcg", lambda: la.nystrom_pcg(
+                    An, bn, st_n, d=dn, mu=mu, tol=1e-5, maxiter=60),
+                 {"K1": 1, "K3": 1}, {"right_fused": 1}),
+                ("rpcholesky_pcg", lambda: la.rpcholesky_pcg(
+                    An, bn, st_n, rank=dn, mu=mu, tol=1e-5, maxiter=60),
+                 {}, {})):
+            (x, iters, _), _ = drive(f"(n) {name}, n={nn}, d=rank={dn}", fn,
+                                     expect)
+            routes(f"(n) {name}", want_routes)
+            res = ((An.double() @ x.double() + mu * x.double() - bn.double())
+                   .norm() / bn.double().norm()).item()
+            err = rel(x, x64n)
+            check(res <= PCG_RES_TOL and err <= PCG_X_TOL,
+                  f"(n) {name}: residual {res}, error {err}")
+            ms = timed(f"(n) {name}", fn)
+            print(f"(n) {name}: {iters} PCG iterations, ||(A + mu I) x - b||"
+                  f" / ||b|| {res:.3g} <= {PCG_RES_TOL}, x vs float64 solve "
+                  f"{err:.3g} <= {PCG_X_TOL}; {ms:.3f} ms [{card}]")
+            breakdown(f"(n) {name}", fn, card)
+        Anm = An + mu * eye(nn)
+        lib = time_ms(lambda: torch.linalg.solve(Anm, bn))
+        print(f"time (n) float32 torch.linalg.solve {lib:.3f} ms, x vs "
+              f"float64 "
+              f"{rel(torch.linalg.solve(Anm, bn), x64n):.3g} [{card}]")
+
+    # -- (o) trace and diagonal of an implicit Gram -----------------------
+    def path_o():
+        no, ko, budget = PHASE9["o"]
+        Go = randn(no, ko) / math.sqrt(ko)
+        Gc = Go.cpu()
+        fro2 = (Go.double() ** 2).sum().item()
+        st_o = rt.RNGState.from_key(seed + 24)
+        for name, fn, expect in (
+                ("xtrace", la.xtrace, {"K3": 1}),
+                ("xdiag", la.xdiag, {"K3": 1}),
+                ("hutchpp", la.hutchpp, {"K3": 2})):
+            def call(g=Go, device=dev, fn=fn):
+                return fn(lambda x: g @ (g.T @ x), no, budget, st_o,
+                          device=device)
+            out, _ = drive(f"(o) {name}, implicit Gram {no}x{ko}, budget "
+                           f"{budget}", call, expect)
+            cpu = call(Gc, "cpu")
+            err = rel(out[0].cpu(), cpu[0])
+            check(err <= TRACE_CPU_TOL, f"(o) {name}: card vs CPU {err}")
+            extra = ""
+            if name == "xtrace":
+                est, se = out[0].item(), out[1].item()
+                check(abs(est - fro2) <= 5 * se,
+                      f"(o) xtrace {est} vs {fro2}, stderr {se}")
+                extra = (f"; estimate {est:.6g} vs ||G||_F^2 {fro2:.6g}, "
+                         f"|diff| {abs(est - fro2) / se:.2f} stderr (<= 5)")
+            ms = timed(f"(o) {name}", call)
+            print(f"(o) {name}: the card vs the same call on the CPU "
+                  f"{err:.3g} "
+                  f"<= {TRACE_CPU_TOL}{extra}; {ms:.3f} ms [{card}]")
+            breakdown(f"(o) {name}", call, card)
+        # test_tpu_hardware.py:447-475's controlled spectrum, with its bounds
+        n_c = 1024
+        uc = torch.linalg.qr(randn(n_c, n_c, dtype=torch.float64)).Q
+        lam_c = 2.0 ** (-torch.arange(n_c, device=dev,
+                                      dtype=torch.float64) / 8)
+        a64 = (uc * lam_c) @ uc.T
+        ac = a64.float()
+        (est, se, _), _ = drive("(o) xtrace, controlled spectrum n=1024",
+                                lambda: la.xtrace(ac, n_c, 96,
+                                                  rt.RNGState.from_key(37)),
+                                {"K3": 1})
+        want_tr = lam_c.sum().item()
+        check(abs(est.item() - want_tr) < max(6 * se.item(), 5e-3 * want_tr),
+              f"(o) controlled xtrace {est.item()} vs {want_tr}")
+        (dc, _), _ = drive("(o) xdiag, controlled spectrum n=1024",
+                           lambda: la.xdiag(ac, n_c, 96,
+                                            rt.RNGState.from_key(38)),
+                           {"K3": 1})
+        d_err = rel(dc, torch.diagonal(a64))
+        check(d_err < 0.08, f"(o) controlled xdiag {d_err}")
+        print(f"(o) controlled spectrum (test_tpu_hardware.py:447-475): "
+              f"xtrace {est.item():.6g} vs {want_tr:.6g} (|diff| "
+              f"{abs(est.item() - want_tr):.3g}"
+              f" < max(6 stderr, 5e-3 tr) = "
+              f"{max(6 * se.item(), 5e-3 * want_tr):.3g}); xdiag "
+              f"{d_err:.3g} < 0.08")
+
+    # -- (p) leverage scores and sample_lsq -------------------------------
+    def path_p():
+        mp, np_, sp = PHASE9["p"]
+        Ap = randn(mp, np_)
+        bp = randn(mp)
+        st_p = rt.RNGState.from_key(seed + 25)
+        (scores, _), _ = drive(f"(p) leverage_scores {mp}x{np_}, saso",
+                               lambda: la.leverage_scores(Ap, st_p), {"K4": 1})
+        routes("(p)", {"sparse_saso_kernel": 1})
+        A64 = Ap.double()
+        q64, r64 = torch.linalg.qr(A64)
+        exact = (q64 * q64).sum(dim=1)
+        ratio = scores.double() / exact
+        lo, hi, med = ratio.min().item(), ratio.max().item(), \
+            ratio.median().item()
+        check(LEV_RATIO[0] <= lo and hi <= LEV_RATIO[1],
+              f"(p) score ratios {lo}, {hi}")
+        (s8, _), _ = drive("(p) leverage_scores, embed_factor 8",
+                           lambda: la.leverage_scores(Ap, st_p,
+                                                      embed_factor=8),
+                           {"K4": 1})
+        ratio8 = s8.double() / exact
+        lo8, hi8, med8 = ratio8.min().item(), ratio8.max().item(), \
+            ratio8.median().item()
+        check(LEV_RATIO[0] <= lo8 and hi8 <= LEV_RATIO[1]
+              and LEV_MEDIAN[0] <= med8 <= LEV_MEDIAN[1],
+              f"(p) embed_factor 8: score ratios {lo8}, {hi8}, median {med8}")
+        x_opt = torch.linalg.solve_triangular(
+            r64, (q64.T @ bp.double())[:, None], upper=True)[:, 0]
+        r_opt = (A64 @ x_opt - bp.double()).norm().item()
+        del q64, r64
+        ms = timed("(p) leverage_scores", lambda: la.leverage_scores(Ap, st_p))
+        bias = [d_ / (d_ - np_ - 1) for d_ in (4 * np_, 8 * np_)]
+        print(f"(p) leverage scores / exact (float64 QR): embed_factor 4 (the "
+              f"bench's) min {lo:.3f}, max {hi:.3f} in {LEV_RATIO}, median "
+              f"{med:.3f} (the estimate's bias d/(d-n-1) {bias[0]:.3f}); "
+              f"embed_factor 8 min {lo8:.3f}, max {hi8:.3f}, median "
+              f"{med8:.3f} "
+              f"in {LEV_MEDIAN} (bias {bias[1]:.3f}); {ms:.3f} ms [{card}]")
+        breakdown("(p) leverage_scores", lambda: la.leverage_scores(Ap, st_p),
+                  card)
+        (xs, _), _ = drive(f"(p) sample_lsq, s={sp}",
+                           lambda: la.sample_lsq(Ap, bp, sp, st_p), {"K4": 1})
+        ratio = (A64 @ xs.double() - bp.double()).norm().item() / r_opt
+        check(ratio <= LSQ_SLACK, f"(p) sample_lsq residual ratio {ratio}")
+        ms = timed("(p) sample_lsq", lambda: la.sample_lsq(Ap, bp, sp, st_p),
+                   lambda: torch.linalg.lstsq(Ap, bp[:, None]),
+                   "float32 torch.linalg.lstsq of the whole system")
+        print(f"(p) sample_lsq: residual / float64 least-squares optimum "
+              f"{ratio:.4f} <= {LSQ_SLACK}; {ms:.3f} ms [{card}]")
+        breakdown("(p) sample_lsq", lambda: la.sample_lsq(Ap, bp, sp, st_p),
+                  card)
+
+    # -- (q) approximate matrix multiplication ----------------------------
+    def path_q():
+        mq, nq, pq, sq = PHASE9["q"]
+        Aq, Bq = randn(mq, nq), randn(nq, pq)
+        st_q = rt.RNGState.from_key(seed + 26)
+        (est, _), _ = drive(f"(q) amm {mq}x{nq} @ {nq}x{pq}, s={sq}",
+                            lambda: la.amm(Aq, Bq, sq, st_q), {})
+        exact = Aq.double() @ Bq.double()
+        err = (est.double() - exact).norm().item()
+        bnd = AMM_SLACK * (Aq.double().norm() * Bq.double().norm()).item() \
+            / math.sqrt(sq)
+        check(err <= bnd, f"(q) ||est - AB||_F {err} > {bnd}")
+        del exact
+        ms = timed("(q) amm", lambda: la.amm(Aq, Bq, sq, st_q),
+                   lambda: torch.matmul(Aq, Bq),
+                   "float32 torch.matmul of the whole product")
+        print(f"(q) amm: ||est - AB||_F {err:.6g} <= 3 ||A||_F ||B||_F / "
+              f"sqrt(s) = {bnd:.6g} (ratio {err / bnd * AMM_SLACK:.3f} of the "
+              f"expected error); {ms:.3f} ms [{card}]")
+        breakdown("(q) amm", lambda: la.amm(Aq, Bq, sq, st_q), card)
+
+    # -- (r) random Fourier features --------------------------------------
+    def path_r():
+        nr, dr, feat = PHASE9["r"]
+        xr = randn(nr, dr)
+        st_r = rt.RNGState.from_key(seed + 27)
+        (z, _), _ = drive(f"(r) random_fourier_features {nr}x{dr} -> {feat}",
+                          lambda: la.random_fourier_features(xr, feat, 1.0,
+                                                             st_r),
+                          {"K2": 1, "K3": 1})
+        routes("(r)", {"left_colmajor_fused": 1})
+        W = rt.DenseSkOp(rt.DenseDist(feat, dr), st_r)
+        phases = rt.DenseSkOp(rt.DenseDist(1, feat, rt.DenseDistName.Uniform),
+                              W.next_state).materialize(device=dev)[0]
+        b_ph = (phases / math.sqrt(3.0) * 0.5 + 0.5) * (2.0 * math.pi)
+        zmax = math.sqrt(2.0 / feat)
+        # the projection by K2's plain version: the operator in the fused
+        # kernels' transform, both operands rounded to bf16, a float32
+        # product; and by the float32 materialised W (the staged fill)
+        proj_k2 = fs.fused_sketch_colmajor_reference(W, xr.T).T
+        w_mat = W.materialize(device=dev)
+        err_k2 = abs_err(z, zmax * torch.cos(proj_k2 + b_ph)) / zmax
+        err_32 = abs_err(z, zmax * torch.cos(xr @ w_mat.T + b_ph)) / zmax
+        check(err_k2 <= RFF_TOL, f"(r) vs K2's plain projection {err_k2}")
+        bw = math.sqrt(dr)
+        x1 = xr[:1024]
+        z1, _ = la.random_fourier_features(x1, feat, bw, st_r)
+        kern = torch.exp(-torch.cdist(x1.double(), x1.double()) ** 2
+                         / (2 * bw * bw))
+        k_err = (z1.double() @ z1.double().T - kern).abs().max().item()
+        check(k_err <= RFF_KERNEL / math.sqrt(feat),
+              f"(r) kernel approximation {k_err}")
+        ms = timed("(r) random_fourier_features, bandwidth 1",
+                   lambda: la.random_fourier_features(xr, feat, 1.0, st_r),
+                   lambda: zmax * torch.cos(xr @ w_mat.T + b_ph),
+                   "the float32 formula on the materialised W")
+        print(f"(r) z vs sqrt(2/D) cos(x W^T + b) with K2's plain projection "
+              f"(bf16 operands) {err_k2:.3g} <= {RFF_TOL}, with the float32 "
+              f"x and W {err_32:.3g} (the route's operand rounding; both / "
+              f"sqrt(2/D)); z z^T vs the RBF kernel at bw = sqrt({dr}) on "
+              f"{len(x1)} points {k_err:.4f} <= 5/sqrt(D) = "
+              f"{RFF_KERNEL / math.sqrt(feat):.4f} (kernel mean "
+              f"{kern.mean().item():.3f}); {ms:.3f} ms [{card}]")
+        breakdown("(r) random_fourier_features",
+                  lambda: la.random_fourier_features(xr, feat, 1.0, st_r),
+                  card)
+
+    # -- (s) Krylov SVD, ID / CUR and the spectral norm on (i)'s matrix ---
+    def path_s():
+        ms_, ns, rank = PHASE9["s"]
+        As, sig = planted(randn, ms_, ns, rank)
+        tail = (sig[rank:].double() ** 2).sum().sqrt().item()
+        st_s = rt.RNGState.from_key(seed + 28)
+        (u, s, vt), _ = drive(f"(s) rsvd_krylov {ms_}x{ns}, rank {rank}, "
+                              "depth 2",
+                              lambda: la.rsvd_krylov(As, rank, st_s),
+                              {"K3": 1})
+        e_k = ((s - sig[:rank]).abs().max() / sig[0]).item()
+        check(e_k <= KRYLOV_TOL, f"(s) rsvd_krylov {e_k}")
+        ms = timed("(s) rsvd_krylov", lambda: la.rsvd_krylov(As, rank, st_s),
+                   lambda: la.rsvd(As, rank, st_s), "(i)'s linalg.rsvd")
+        print(f"(s) rsvd_krylov: top-{rank} vs the planted singular values "
+              f"{e_k:.3g} <= {KRYLOV_TOL} (max abs err / s_1); {ms:.3f} ms "
+              f"[{card}]")
+        breakdown("(s) rsvd_krylov", lambda: la.rsvd_krylov(As, rank, st_s),
+                  card)
+        # the SVD under the Krylov basis: cuSOLVER's default float32 SVD
+        # against qb.safe_svd (Householder QR, then the small factor's SVD
+        # in float64), on the first Krylov block
+        y = As @ rt.DenseSkOp(rt.DenseDist(ns, rank + 2),
+                              st_s).materialize(device=dev)
+        eye_k = eye(rank + 2)
+        orth = {}
+        for name, svd in (("torch.linalg.svd", torch.linalg.svd),
+                          ("safe_svd", qb.safe_svd)):
+            u_, s_, vt_ = svd(y, full_matrices=False)
+            orth[name] = ((u_.T @ u_ - eye_k).abs().max().item(),
+                          ((u_ * s_) @ vt_ - y).abs().max().item()
+                          / y.abs().max().item())
+        check(max(orth["safe_svd"]) <= SVD_TOL, f"(s) safe_svd {orth}")
+        print(f"(s) the SVD of the first Krylov block ({ms_}x{rank + 2}): "
+              + ", ".join(f"{k} max |U^T U - I| {o:.3g}, reconstruction "
+                          f"{r:.3g} of max |y|" for k, (o, r) in orth.items())
+              + f" (safe_svd <= {SVD_TOL})")
+        (j, z_id), _ = drive(f"(s) column_id, k={rank}",
+                             lambda: la.column_id(As, rank, st_s), {"K3": 1})
+        jt = torch.as_tensor(j, device=dev)
+        r_id = (As - As[:, jt] @ z_id).norm().item() / tail
+        (i_, j2, u_c), _ = drive(f"(s) cur, k={rank}",
+                                 lambda: la.cur(As, rank, st_s), {"K3": 2})
+        c_ = As[:, torch.as_tensor(j2, device=dev)]
+        r_ = As[torch.as_tensor(i_, device=dev), :]
+        r_cur = (As - c_ @ u_c @ r_).norm().item() / tail
+        check(r_id <= ID_SLACK and r_cur <= ID_SLACK,
+              f"(s) ID {r_id}, CUR {r_cur} times ||A - A_k||_F")
+        id_ms = time_ms(lambda: la.column_id(As, rank, st_s))
+        cur_ms = timed("(s) cur", lambda: la.cur(As, rank, st_s))
+        print(f"(s) ||A - A[:, J] Z||_F / ||A - A_{rank}||_F {r_id:.3f}, "
+              f"||A - C U R||_F / ||A - A_{rank}||_F {r_cur:.3f} (<= "
+              f"{ID_SLACK}); column_id {id_ms:.3f} ms, cur {cur_ms:.3f} ms "
+              f"[{card}]")
+        breakdown("(s) cur", lambda: la.cur(As, rank, st_s), card)
+        (sn, _), _ = drive("(s) spectral_norm, tol 1e-2",
+                           lambda: la.spectral_norm(As, st_s), {"K3": 1})
+        e_sn = abs(sn.item() - sig[0].item()) / sig[0].item()
+        check(e_sn <= SPEC_TOL, f"(s) spectral_norm {e_sn}")
+        ms = timed("(s) spectral_norm", lambda: la.spectral_norm(As, st_s))
+        print(f"(s) spectral_norm ({la.required_power_iters(ns, 1e-6, 1e-2)} "
+              f"power steps on A^T A) vs s_1 {e_sn:.3g} <= {SPEC_TOL}; "
+              f"{ms:.3f} ms [{card}]")
+        breakdown("(s) spectral_norm", lambda: la.spectral_norm(As, st_s),
+                  card)
+
+    # -- (t) sGMRES and sketched eigenpairs -------------------------------
+    def path_t():
+        nt, basis, kt, ebasis = PHASE9["t"]
+        At = randn(nt, nt) / math.sqrt(nt) + 4 * eye(nt)
+        bt = randn(nt)
+        st_t = rt.RNGState.from_key(seed + 29)
+        (x, res, _), _ = drive(f"(t) sgmres n={nt}, basis {basis}, saso",
+                               lambda: la.sgmres(At, bt, st_t, basis=basis),
+                               {"K4": 3})
+        routes("(t) sgmres", {"sparse_saso_kernel": 3})
+        true = ((At.double() @ x.double() - bt.double()).norm()
+                / bt.double().norm()).item()
+        check(true <= SGMRES_TOL, f"(t) sgmres true residual {true}")
+        ms = timed("(t) sgmres", lambda: la.sgmres(At, bt, st_t, basis=basis),
+                   lambda: torch.linalg.solve(At, bt),
+                   "float32 torch.linalg.solve")
+        print(f"(t) sgmres: true residual {true:.3g} <= {SGMRES_TOL}, "
+              f"sketched "
+              f"residual {res.item():.3g} (K4 rounds the basis image to bf16; "
+              f"test_tpu_hardware.py:364-383 bounds it at 1e-3); {ms:.3f} ms "
+              f"[{card}]")
+        breakdown("(t) sgmres", lambda: la.sgmres(At, bt, st_t, basis=basis),
+                  card)
+        g_ = randn(nt, nt)
+        Ag = (g_ + g_.T) / math.sqrt(2 * nt)
+        del g_, At
+        drive(f"(t) sketched_eigs sym, GOE n={nt}, k={kt}, basis {ebasis}",
+              lambda: la.sketched_eigs(Ag, kt, st_t, basis=ebasis, sym=True),
+              {"K3": 1})
+        ms = timed("(t) sketched_eigs(sym=True), GOE",
+                   lambda: la.sketched_eigs(Ag, kt, st_t, basis=ebasis,
+                                            sym=True),
+                   lambda: torch.linalg.eigvalsh(Ag),
+                   "float32 torch.linalg.eigvalsh")
+        breakdown("(t) sketched_eigs sym", lambda: la.sketched_eigs(
+            Ag, kt, st_t, basis=ebasis, sym=True), card)
+        del Ag
+        # 16 planted, well separated top eigenvalues 20 -> 5 over a bulk in
+        # [-1, 1]
+        ut = torch.linalg.qr(randn(nt, nt)).Q
+        lam_t = torch.cat([torch.linspace(20, 5, kt, device=dev),
+                           torch.linspace(1, -1, nt - kt, device=dev)])
+        Ap_t = (ut * lam_t) @ ut.T
+        Ap_t = 0.5 * (Ap_t + Ap_t.T)
+        del ut
+        t0 = time.perf_counter()
+        ref = top_abs(torch.linalg.eigvalsh(Ap_t.double()), kt)
+        ref_s = time.perf_counter() - t0
+        for sym, expect in ((True, {"K3": 1}), (False, {"K3": 1})):
+            (th, _, _, _), _ = drive(
+                f"(t) sketched_eigs sym={sym}, planted, k={kt}",
+                lambda: la.sketched_eigs(Ap_t, kt, st_t, basis=ebasis,
+                                         sym=sym),
+                expect)
+            th = th.real if th.is_complex() else th
+            err = ((top_abs(th.double(), kt) - ref).abs().max()
+                   / ref.abs().max()).item()
+            check(err <= RITZ_TOL, f"(t) sketched_eigs sym={sym}: {err}")
+            ms = timed(f"(t) sketched_eigs(sym={sym}), planted",
+                       lambda: la.sketched_eigs(Ap_t, kt, st_t, basis=ebasis,
+                                                sym=sym))
+            print(f"(t) sketched_eigs(sym={sym}): the {kt} Ritz values vs "
+                  f"float64 eigvalsh ({ref_s:.1f} s) {err:.3g} <= {RITZ_TOL}; "
+                  f"{ms:.3f} ms [{card}]")
+            if not sym:
+                breakdown("(t) sketched_eigs nonsym", lambda: la.sketched_eigs(
+                    Ap_t, kt, st_t, basis=ebasis), card)
+        # why the nonsymmetric pencil's sketches are precise: the same
+        # pencil with S Q and S A Q through sketch_general (K4, which rounds
+        # Q and AQ to bf16 apart) against rgs._precise_sketch
+        v0 = rt.DenseSkOp(rt.DenseDist(1, nt), st_t).materialize(
+            device=dev)[0]
+        q_t, aq_t = sg._truncated_arnoldi(lambda v: Ap_t @ v, v0, ebasis, 4)
+        S_t = make_embedding("saso", 2 * ebasis + 8, nt, st_t)
+        pencil = {}
+        for name, sk in (("K4", lambda x: rt.sketch_general(S_t, x)),
+                         ("precise", lambda x: rgs._precise_sketch(
+                             S_t, x, 1.0))):
+            # the whitening of sketched_eigs: S Q = U diag(s) V^T, its
+            # singular values clipped at eps m s_0
+            u_, s_, vt_ = qb.safe_svd(sk(q_t))
+            cut = torch.finfo(torch.float32).eps * ebasis * s_[0]
+            s_inv = torch.where(s_ > cut, 1.0 / torch.maximum(s_, cut), 0.0)
+            w_ = np.linalg.eigvals((u_.T @ sk(aq_t) @ (vt_.T * s_inv))
+                                   .double().cpu().numpy())
+            w_ = np.sort(w_[np.argsort(-np.abs(w_))[:kt]].real)
+            pencil[name] = (np.abs(w_ - ref.cpu().numpy()).max()
+                            / ref.abs().max().item())
+        check(pencil["precise"] <= RITZ_TOL, f"(t) pencil {pencil}")
+        print(f"(t) the sketched pencil's {kt} Ritz values vs float64 "
+              f"eigvalsh: sketches through K4 {pencil['K4']:.3g}, through "
+              f"rgs._precise_sketch {pencil['precise']:.3g} <= {RITZ_TOL}")
+
+    # -- (u) randomized Gram-Schmidt QR -----------------------------------
+    def path_u():
+        mu_, ku, bu = PHASE9["u"]
+        Au = randn(mu_, ku)
+        st_u = rt.RNGState.from_key(seed + 30)
+        (q, r, _), got = drive(f"(u) rgs_qr {mu_}x{ku}, block {bu}",
+                               lambda: la.rgs_qr(Au, st_u, block=bu),
+                               {"K3": 1})
+        check(got["K1"] == got["K2"] == got["K4"] == 0,
+              f"(u) a bf16-operand kernel ran inside rgs_qr: {got}")
+        rec = rel(q @ r, Au)
+        check(rec <= RGS_REC_TOL and torch.equal(r, torch.triu(r)),
+              f"(u) rgs_qr reconstruction {rec}")
+        ms = timed("(u) rgs_qr", lambda: la.rgs_qr(Au, st_u, block=bu),
+                   lambda: la.cholqr(Au), "linalg.cholqr (CholQR2)")
+        print(f"(u) rgs_qr: K1 {got['K1']}, K2 {got['K2']}, K4 {got['K4']} "
+              f"launches inside it; ||QR - A|| / ||A|| {rec:.3g} <= "
+              f"{RGS_REC_TOL}, R upper triangular; {ms:.3f} ms [{card}]")
+        breakdown("(u) rgs_qr", lambda: la.rgs_qr(Au, st_u, block=bu), card)
+        del Au, q, r
+        # test_tpu_hardware.py:508-534's cond 3e7 case, with its bounds
+        mc, kc = 8192, 128
+        uc = torch.linalg.qr(randn(mc, kc, dtype=torch.float64)).Q
+        vc = torch.linalg.qr(randn(kc, kc, dtype=torch.float64)).Q
+        sc = 3e7 ** (-torch.arange(kc, device=dev, dtype=torch.float64)
+                     / (kc - 1))
+        ac = ((uc * sc) @ vc.T).float()
+        (q, r, _), got = drive("(u) rgs_qr, cond 3e7, 8192x128, block 64",
+                               lambda: la.rgs_qr(ac, rt.RNGState.from_key(41),
+                                                 block=64), {"K3": 1})
+        rec = rel(q @ r, ac)
+        orth = torch.linalg.matrix_norm(q.double().T @ q.double()
+                                        - eye(kc, torch.float64), 2).item()
+        check(rec < RGS_HW[0] and orth < RGS_HW[1]
+              and torch.equal(r, torch.triu(r)),
+              f"(u) cond 3e7: reconstruction {rec}, orthogonality {orth}")
+        print(f"(u) cond 3e7 (test_tpu_hardware.py:508-534): reconstruction "
+              f"{rec:.3g} < {RGS_HW[0]}, ||Q^T Q - I||_2 {orth:.3g} < "
+              f"{RGS_HW[1]}; K1 {got['K1']}, K2 {got['K2']}, K4 {got['K4']}")
+
+    # -- (v) the randomized eigensolvers ----------------------------------
+    def path_v():
+        nv, kv = PHASE9["v"]
+        g_ = randn(nv, nv)
+        Av = (g_ + g_.T) / math.sqrt(2 * nv)
+        h_ = randn(nv, 64) / 8.0
+        Bv = h_ @ h_.T + eye(nv)
+        st_v = rt.RNGState.from_key(seed + 31)
+        (w, xv), _ = drive(f"(v) rand_geigh n={nv}, k={kv}, the bench's "
+                           "pencil",
+                           lambda: la.rand_geigh(Av, Bv, kv, st_v), {"K3": 1})
+        check(bool(torch.isfinite(w).all() and torch.isfinite(xv).all()),
+              "(v) rand_geigh on the bench's pencil: non-finite output")
+        ms = timed("(v) rand_geigh, the bench's pencil",
+                   lambda: la.rand_geigh(Av, Bv, kv, st_v))
+        breakdown("(v) rand_geigh", lambda: la.rand_geigh(Av, Bv, kv, st_v),
+                  card)
+        del g_, Av, h_, Bv
+        # test_tpu_hardware.py:420-445's construction at this width: B = g g^T
+        # / n + I, A = L (U diag(theta) U^T) L^T with theta planted
+        g64 = randn(nv, nv, dtype=torch.float64)
+        b64 = g64 @ g64.T / nv + eye(nv, torch.float64)
+        del g64
+        ell = torch.linalg.cholesky(b64)
+        uv = torch.linalg.qr(randn(nv, kv, dtype=torch.float64)).Q
+        theta = torch.linspace(5.0, -3.0, kv, device=dev, dtype=torch.float64)
+        a32 = (ell @ ((uv * theta) @ uv.T) @ ell.T).float()
+        b32 = b64.float()
+        del b64, ell, uv
+        t0 = time.perf_counter()
+        l32 = torch.linalg.cholesky(b32.double())
+        c64 = torch.linalg.solve_triangular(
+            l32,
+            torch.linalg.solve_triangular(l32, a32.double(), upper=False).T,
+            upper=False)
+        ref_g = top_abs(torch.linalg.eigvalsh(0.5 * (c64 + c64.T)), kv)
+        ref_a = top_abs(torch.linalg.eigvalsh(a32.double()), kv)
+        ref_s = time.perf_counter() - t0
+        del l32, c64
+        for name, fn, ref in (
+                ("rand_geigh", lambda: la.rand_geigh(a32, b32, kv, st_v),
+                 ref_g),
+                ("rand_eigh", lambda: la.rand_eigh(a32, kv, st_v), ref_a)):
+            (w, _), _ = drive(f"(v) {name}, planted, n={nv}, k={kv}", fn,
+                              {"K3": 1})
+            err = ((torch.sort(w.double())[0] - ref).abs().max()
+                   / ref.abs().max()).item()
+            check(err <= RITZ_TOL, f"(v) {name} planted: {err}")
+            ms = timed(f"(v) {name}, planted", fn)
+            print(f"(v) {name}: the top {kv} vs float64 eigvalsh "
+                  f"({ref_s:.1f} s for both references) {err:.3g} <= "
+                  f"{RITZ_TOL}; {ms:.3f} ms [{card}]")
+
+    for path in (path_m, path_n, path_o, path_p, path_q, path_r, path_s,
+                 path_t, path_u, path_v):
+        path()
+        torch.cuda.empty_cache()
+
+
 def profile_main(rt, S, A, card):
     """One torch.profiler window over five main-path calls: K1's device
     time per call and the share of the window in which the card ran no
@@ -933,7 +1606,7 @@ def profile_main(rt, S, A, card):
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0,
-                        help="seed of the data of paths (h) to (l)")
+                        help="seed of the data of paths (h) to (v)")
     cli = parser.parse_args()
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda.is_available() is False; "
@@ -1453,6 +2126,8 @@ def main():
     sparse_kernels = sparse_paths(rt, dev, drive, card)
     torch.cuda.empty_cache()
     linalg_paths(rt, dev, drive, card, cli.seed)
+    torch.cuda.empty_cache()
+    solver_paths(rt, dev, drive, card, cli.seed)
     # launches: K1 on the main path, K2 on its backward pass (a), K3 on the
     # staged route, whose fill the K3 entry's numbers time
     k3_ms, k3_seq_ms, k3_dev_ms = k3_first["boxmul"]

@@ -14,8 +14,10 @@ runs K5 (``csrc/ell_spmm.cu``). On the CPU the same calls run the kernels'
 plain PyTorch versions. Fills and containers built from host arrays go to
 the card unless ``device="cpu"`` is given. Also: SRHT operators
 (``TrigSkOp``, Hadamard stages as matrix products), TensorSketch and the
-Kronecker FJLT (``tensor``), the samplers and helpers of ``util``, and the
-first group of the linalg tier in ``randblas_tpu_torch.linalg``. The
+Kronecker FJLT (``tensor``), the samplers and helpers of ``util``, groups
+1-3 of the linalg tier in ``randblas_tpu_torch.linalg``, and operators
+seeded with the 64-bit-counter generators, whose float64 values are filled
+on the host (``rng.x64``, and the native engine of ``native``). The
 package imports torch, never jax.
 """
 

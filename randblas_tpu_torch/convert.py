@@ -44,13 +44,26 @@ def dist_from_jax(n_rows: int, n_cols: int, family: str,
 
 def skop_from_jax(n_rows, n_cols: int = None, family: str = None,
                   major_axis: str = None, state: dict = None,
-                  dtype=torch.float32, device=None):
+                  dtype=None, device=None):
     """A lazy DenseSkOp with the same values as the JAX operator built from
-    the same distribution and ``state`` (a ``to_dict()`` snapshot).
+    the same distribution and ``state`` (a ``to_dict()`` snapshot). Its
+    dtype defaults as the JAX operator's does: float64 for an x64 seed,
+    float32 otherwise.
 
-    Given a JAX TrigSkOp in place of ``n_rows`` (and nothing else but
-    ``dtype`` and ``device``), the TrigSkOp of ``trig_skop_from_jax`` with
-    its distribution, seed and cached signs and indices."""
+    Given a JAX DenseSkOp in place of ``n_rows`` (and nothing else but
+    ``dtype`` and ``device``), the lazy DenseSkOp of its distribution and
+    seed, at its dtype unless ``dtype`` is given. Given a JAX TrigSkOp, the
+    TrigSkOp of ``trig_skop_from_jax`` with its distribution, seed and
+    cached signs and indices."""
+    if type(n_rows).__name__ == "DenseSkOp":
+        op = n_rows
+        if dtype is None:
+            dtype = getattr(torch, np.dtype(op.dtype).name)
+        return DenseSkOp(dist_from_jax(op.dist.n_rows, op.dist.n_cols,
+                                       op.dist.family.name,
+                                       op.dist.major_axis.name),
+                         state_from_jax(op.seed_state.to_dict()),
+                         dtype=dtype)
     if type(n_rows).__name__ == "TrigSkOp":
         op = n_rows
         signs, indices = getattr(op, "_signs", None), getattr(op, "_indices",
@@ -58,8 +71,8 @@ def skop_from_jax(n_rows, n_cols: int = None, family: str = None,
         return trig_skop_from_jax(
             op.dist.n_rows, op.dist.n_cols, op.seed_state.to_dict(),
             None if signs is None else np.asarray(signs),
-            None if indices is None else np.asarray(indices), dtype=dtype,
-            device=device)
+            None if indices is None else np.asarray(indices),
+            dtype=torch.float32 if dtype is None else dtype, device=device)
     return DenseSkOp(dist_from_jax(n_rows, n_cols, family, major_axis),
                      state_from_jax(state), dtype=dtype)
 

@@ -13,16 +13,20 @@ The invariants carried over from the reference:
 Operators are lazy: ``materialize``/``submat`` fill on request, on the
 device asked for (the card unless ``device="cpu"`` is given; there through
 the fill kernel K3 where it takes the block), and the fused sketch kernels
-never store the operator.
+never store the operator. An operator seeded with a 64-bit-counter
+generator (an x64 seed) has native float64 values, filled on the host by
+the native C++ engine or its numpy copy and moved to the device asked for.
 """
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import enum
 import math
 from typing import Optional
 
+import numpy as np
 import torch
 
 from .base import Layout, MajorAxis, require
@@ -40,6 +44,16 @@ class DenseDistName(enum.Enum):
 
 TRANSFORM = {DenseDistName.Gaussian: "boxmul",
              DenseDistName.Uniform: "uneg11"}
+
+# Host engine of the x64 (float64-stream) fill: "auto" takes the native
+# OpenMP C++ engine (native.py) when it is built, bitwise the numpy engine
+# for Uniform values and within 1 ulp for Gaussian ones (libm's sin, cos
+# and log against numpy's); False always takes the numpy engine
+# (rng/x64.py).
+use_native_x64 = "auto"
+
+# how many x64 blocks each engine filled: keys "native" and "numpy"
+x64_engine_counts = collections.Counter()
 
 
 @dataclasses.dataclass(frozen=True)
@@ -162,6 +176,45 @@ def _plain_values(dist: DenseDist, state: RNGState, n_rows: int,
                          transform, device)
 
 
+def _rowmajor64(state: RNGState, transform: str, n_cols_parent: int,
+                n_rows: int, n_cols: int, ptr: int) -> np.ndarray:
+    """A row-major float64 block of an x64 stream by the host engine that
+    ``use_native_x64`` picks, counted in ``x64_engine_counts``."""
+    from . import native
+    from .rng import x64
+    if use_native_x64 is not False and native.available():
+        x64_engine_counts["native"] += 1
+        return native.fill_rowmajor64(
+            n_cols_parent, n_rows, n_cols, ptr,
+            x64.limbs_to_words(np.asarray(state.counter)),
+            x64.limbs_to_words(np.asarray(state.key)),
+            transform == "boxmul", state.rng)
+    x64_engine_counts["numpy"] += 1
+    return x64.fill_rowmajor64(n_cols_parent, n_rows, n_cols, ptr, state,
+                               transform)
+
+
+def _x64_values(dist: DenseDist, state: RNGState, n_rows: int, n_cols: int,
+                ro_s: int, co_s: int, dtype, device) -> torch.Tensor:
+    """The block of an x64 seed: native float64 values made on the host
+    (a ColMajor-natural block as the block of the transposed parent,
+    flipped, the reference's omatcopy fallback, dense_skops.hh:523-530),
+    Uniform scaled by sqrt(3) in float64, then cast to ``dtype`` on
+    ``device``."""
+    ma_len = major_axis_length(dist)
+    transform = TRANSFORM[dist.family]
+    if dist_to_layout(dist) == Layout.ColMajor:
+        vals = _rowmajor64(state, transform, ma_len, n_cols, n_rows,
+                           ro_s + co_s * ma_len).T
+    else:
+        vals = _rowmajor64(state, transform, ma_len, n_rows, n_cols,
+                           ro_s * ma_len + co_s)
+    if dist.family == DenseDistName.Uniform:
+        vals = vals * np.float64(math.sqrt(3.0))
+    return torch.from_numpy(np.ascontiguousarray(vals)).to(
+        device=device, dtype=dtype)
+
+
 def _cast_and_scale(vals: torch.Tensor, dist: DenseDist, dtype):
     vals = vals.to(dtype).contiguous()
     if dist.family == DenseDistName.Uniform:
@@ -180,8 +233,12 @@ def fill_dense_submat(dist: DenseDist, state: RNGState, n_rows: int,
     On a CUDA device a Gaussian or Uniform block of a 4x32 generator is
     made in one pass by the fill kernel K3, in math orientation
     (``_kernel_fill_route``), bit for bit the plain fill; any other block
-    takes the plain fill, ``fill_dense_submat_reference``."""
+    takes the plain fill, ``fill_dense_submat_reference``. A block of an
+    x64 seed is made on the host in float64 (``_x64_values``)."""
     device = _checked_device(dist, n_rows, n_cols, ro_s, co_s, device)
+    if state.is_x64:
+        return _x64_values(dist, state, n_rows, n_cols, ro_s, co_s, dtype,
+                           device)
     if _kernel_fill_route(dist, state.rng, device):
         vals = fused_sketch._fill(dist, state, n_rows, n_cols, ro_s, co_s,
                                   device, "boxmul", scale=False)
@@ -196,8 +253,11 @@ def fill_dense_submat_reference(dist: DenseDist, state: RNGState,
                                 device=None) -> torch.Tensor:
     """``fill_dense_submat`` by the plain fill (batched generator calls on
     word tensors, ops/dense_fill.py) on any device: the route's plain
-    version."""
+    version (an x64 seed's block is the host fill either way)."""
     device = _checked_device(dist, n_rows, n_cols, ro_s, co_s, device)
+    if state.is_x64:
+        return _x64_values(dist, state, n_rows, n_cols, ro_s, co_s, dtype,
+                           device)
     return _cast_and_scale(
         _plain_values(dist, state, n_rows, n_cols, ro_s, co_s, device), dist,
         dtype)
@@ -223,7 +283,9 @@ class DenseSkOp:
     """A sample from a DenseDist, lazy unless ``materialized`` is given.
 
     ``seed_state`` may be an int key. ``next_state`` defaults to the state
-    after a full sample. ``materialize()`` returns a fresh fill each call;
+    after a full sample. ``dtype`` defaults to float64 for an x64 seed
+    (the reference deduces the float width from the counter word size,
+    random_gen.hh:121-173) and to float32 otherwise. ``materialize()`` returns a fresh fill each call;
     build ``DenseSkOp(dist, state, materialized=S.materialize())`` to hold
     one (such an operator no longer takes the fused route).
     """
@@ -232,12 +294,15 @@ class DenseSkOp:
     _: dataclasses.KW_ONLY
     next_state: Optional[RNGState] = None
     materialized: Optional[torch.Tensor] = None
-    dtype: torch.dtype = torch.float32
+    dtype: Optional[torch.dtype] = None
 
     def __post_init__(self):
         if isinstance(self.seed_state, int):
             object.__setattr__(self, "seed_state",
                                RNGState.from_key(self.seed_state))
+        if self.dtype is None:
+            object.__setattr__(self, "dtype", torch.float64
+                               if self.seed_state.is_x64 else torch.float32)
         if self.next_state is None:
             object.__setattr__(self, "next_state",
                                compute_next_state(self.dist, self.seed_state))

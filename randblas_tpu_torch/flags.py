@@ -4,7 +4,8 @@ randblas_tpu/flags.py).
 The flags: ``use_fused`` ("auto" / True / False), ``use_kernel_fill``
 (False / True) and ``use_saso_kernel`` ("auto" / True / False) live in
 ``randblas_tpu_torch.skge``; ``auto_blocked_ell`` ("auto" / True / False) in
-``randblas_tpu_torch.sparse_data.spmm``. ``flags(...)`` scopes an override
+``randblas_tpu_torch.sparse_data.spmm``; ``use_native_x64`` ("auto" / False,
+the x64 fill's host engine) in ``randblas_tpu_torch.dense``. ``flags(...)`` scopes an override
 and restores it on exit::
 
     with randblas_tpu_torch.flags(use_fused=False):
@@ -21,6 +22,7 @@ _FLAG_HOMES = {
     "use_kernel_fill": "randblas_tpu_torch.skge",
     "use_saso_kernel": "randblas_tpu_torch.skge",
     "auto_blocked_ell": "randblas_tpu_torch.sparse_data.spmm",
+    "use_native_x64": "randblas_tpu_torch.dense",
 }
 
 

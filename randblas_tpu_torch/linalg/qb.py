@@ -33,6 +33,24 @@ def _is_sparse(a) -> bool:
     return isinstance(a, (COOMatrix, CSRMatrix, CSCMatrix))
 
 
+def _device_of(a, device=None) -> torch.device:
+    """``device`` if given, else the device of the data ``a`` (a tensor or a
+    sparse container), else the card: an operator given as a callable holds
+    no tensor, and then its probes are made on the card unless the caller
+    asks for the CPU (``dense.default_device``)."""
+    from ..dense import default_device
+    if device is None and not callable(a):
+        return a.device
+    return default_device(device)
+
+
+def _cholesky(g: torch.Tensor) -> torch.Tensor:
+    """The lower Cholesky factor of ``g``, NaN where the factorization fails
+    (as JAX returns it), with no host synchronisation."""
+    c, info = torch.linalg.cholesky_ex(g)
+    return torch.where(info == 0, c, torch.full_like(c, float("nan")))
+
+
 def _matmul(a, b, dtype):
     """a @ b in the operands' promoted dtype, cast to ``dtype`` (the JAX
     package's ``preferred_element_type``)."""
@@ -96,10 +114,36 @@ def make_matvec(a):
 
 
 def safe_svd(x: torch.Tensor, full_matrices: bool = False):
-    """``torch.linalg.svd``. The JAX package's version scopes its x64 mode
-    off around the SVD to step round a TPU compiler crash, which has no
-    counterpart here."""
-    return torch.linalg.svd(x, full_matrices=full_matrices)
+    """The SVD of a 2-D tensor, ``(u, s, vt)``, accurate to x's precision on
+    the card as on the CPU.
+
+    On a CUDA tensor ``torch.linalg.svd`` runs cuSOLVER's Jacobi solver,
+    whose float32 singular vectors are orthonormal to only ~1e-4 (and
+    reconstruct a random 8192 x 512 matrix to ~8e-4 of its largest entry;
+    PERF.md, on an H100). So a thin SVD reduces x by Householder QR along
+    its long side and decomposes the small square factor in float64; the
+    long factor is the QR factor times the small one's. The JAX package's
+    version scopes its x64 mode off around the SVD to step round a TPU
+    compiler crash, which has no counterpart here."""
+    if full_matrices:
+        return torch.linalg.svd(x, full_matrices=True)
+    if x.shape[0] < x.shape[1]:
+        v, s, ut = safe_svd(x.T)
+        return ut.T, s, v.T
+    q, r = torch.linalg.qr(x)
+    ur, s, vt = torch.linalg.svd(r.to(torch.float64), full_matrices=False)
+    return q @ ur.to(x.dtype), s.to(x.dtype), vt.to(x.dtype)
+
+
+def _clip_diagonal(r: torch.Tensor) -> torch.Tensor:
+    """r with |diag(r)| floored at eps * ||r||_F, the sign kept, so a
+    triangular solve with it stays finite on a rank-deficient r."""
+    dr = torch.diagonal(r)
+    floor = torch.clamp(torch.finfo(r.dtype).eps * torch.linalg.norm(r),
+                        min=torch.finfo(r.dtype).tiny)
+    dr_c = torch.where(dr.abs() < floor, torch.where(dr < 0, -floor, floor),
+                       dr)
+    return r + torch.diag(dr_c - dr)
 
 
 def _solve_upper(r, v):

@@ -24,25 +24,32 @@ _GENERATORS = {
     "threefry2x32": (2, 2),
 }
 
-# 64-bit-counter generators of the JAX package, not ported yet
-_GENERATORS_X64 = ("philox4x64", "philox2x64", "threefry4x64",
-                   "threefry2x64")
+# 64-bit-counter generators (the reference's native-float64 streams,
+# random_gen.hh:121-173), generated on the host (rng/x64.py, native.py).
+# Their words are stored as the little-endian uint32 limbs of the uint64
+# words (word i -> limbs 2i, 2i+1), so the multiword ``incr`` below is
+# Random123's ctr.incr over the uint64 words. name -> (counter limbs,
+# key limbs)
+_GENERATORS_X64 = {
+    "philox4x64": (8, 4),
+    "philox2x64": (4, 2),
+    "threefry4x64": (8, 8),
+    "threefry2x64": (4, 4),
+}
 
 DEFAULT_RNG = "philox4x32"
+DEFAULT_RNG_X64 = "philox4x64"
 
 
 def generator_info(name: str):
-    """(counter words, key words) of a 32-bit generator."""
-    if name in _GENERATORS_X64:
-        raise NotImplementedError(
-            f"{name}: the 64-bit-counter generators are not ported to "
-            "randblas_tpu_torch yet (ROADMAP.md Queue 1 item 9)")
+    """(counter words, key words) of a generator; 32-bit words (limbs) for
+    the x64 generators."""
     try:
-        return _GENERATORS[name]
+        return _GENERATORS.get(name) or _GENERATORS_X64[name]
     except KeyError:
         raise ValueError(
             f"unknown counter-based RNG {name!r}; supported: "
-            f"{sorted(_GENERATORS)}") from None
+            f"{sorted(_GENERATORS) + sorted(_GENERATORS_X64)}") from None
 
 
 def _words(values, n: int, what: str) -> Tuple[int, ...]:
@@ -83,11 +90,14 @@ class RNGState:
 
     @staticmethod
     def from_key(key_scalar: int = 0, rng: str = DEFAULT_RNG) -> "RNGState":
-        """Counter all-zero; key word 0 = key_scalar, the rest zero."""
+        """Counter all-zero; key word 0 = key_scalar, the rest zero. An x64
+        generator's key word is 64-bit: two limbs."""
         len_c, len_k = generator_info(rng)
-        return RNGState((0,) * len_c,
-                        (int(key_scalar) & 0xFFFFFFFF,) + (0,) * (len_k - 1),
-                        rng)
+        key = [0] * len_k
+        key[0] = int(key_scalar) & 0xFFFFFFFF
+        if rng in _GENERATORS_X64:
+            key[1] = (int(key_scalar) >> 32) & 0xFFFFFFFF
+        return RNGState((0,) * len_c, tuple(key), rng)
 
     @staticmethod
     def from_arrays(counter, key, rng: str = DEFAULT_RNG) -> "RNGState":
@@ -98,9 +108,26 @@ class RNGState:
     # -- info --------------------------------------------------------------
 
     @property
-    def block_width(self) -> int:
-        """Values generated per counter block (the counter's word count)."""
+    def len_c(self) -> int:
+        """Stored counter words (uint32 limbs for x64 generators)."""
         return len(self.counter)
+
+    @property
+    def len_k(self) -> int:
+        return len(self.key)
+
+    @property
+    def is_x64(self) -> bool:
+        """True for the 64-bit-counter generators (host-side, float64
+        streams)."""
+        return self.rng in _GENERATORS_X64
+
+    @property
+    def block_width(self) -> int:
+        """Values generated per counter block: the reference's ``ctr_size``,
+        counter words (not limbs), so x32 and x64 streams share one set of
+        submatrix and next-state arithmetic."""
+        return self.len_c // 2 if self.is_x64 else self.len_c
 
     # -- counter arithmetic ------------------------------------------------
 

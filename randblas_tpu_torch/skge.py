@@ -24,7 +24,10 @@ and each counted in ``route_counts``:
   multiplied with ``torch.matmul`` (float64 runs native FP64).
 
 A fused route needs a lazy operator, a Philox4x32/Threefry4x32 seed and
-float32 or bf16 data. On CUDA tensors ``use_fused="auto"`` takes a fused
+float32 or bf16 data. An operator with an x64 seed (Philox/Threefry 2x64,
+4x64) therefore always takes the staged route: its block is filled on the
+host in float64 (``dense.fill_dense_submat``) and multiplied on A's
+device. On CUDA tensors ``use_fused="auto"`` takes a fused
 route whenever one is eligible; on CPU tensors "auto" takes the staged
 route, and ``use_fused=True`` takes the kernels' plain versions. A square
 distribution transposes to itself, so the identity behind the left-Trans

@@ -129,8 +129,15 @@ def test_state_dict_round_trip_with_jax():
 
 
 def test_x64_generators_are_not_ported_yet():
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-        trng.RNGState.from_key(0, "philox4x64")
+    """The x64 generators are ported now: each constructs with the JAX
+    package's limb layout, and an unknown name still raises ValueError."""
+    for name in ("philox4x64", "philox2x64", "threefry4x64",
+                 "threefry2x64"):
+        jstate = jrng.RNGState.from_key(2 ** 40 + 9, name)
+        tstate = trng.RNGState.from_key(2 ** 40 + 9, name)
+        assert tstate.is_x64 and tstate.to_dict() == jstate.to_dict()
+        assert trng.state.generator_info(name) == (tstate.len_c,
+                                                   tstate.len_k)
     with pytest.raises(ValueError):
         trng.RNGState.from_key(0, "nosuchrng")
 

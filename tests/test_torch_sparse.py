@@ -345,9 +345,16 @@ def test_every_port_module_imports_with_jax_blocked():
         "for name in names + ['chip_smoke', 'kernel_variants', "
         "'fused_ablation', 'saso_ablation', 'fill_ablation']:\n"
         "    importlib.import_module(name)\n"
-        "print(len(names))\n")
+        "print(' '.join(names))\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     res = subprocess.run([sys.executable, "-c", code], cwd=repo, env=env,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
-    assert int(res.stdout) >= 30
+    names = set(res.stdout.split())
+    assert len(names) >= 30
+    # the host engines and the linalg modules of groups 2 and 3 among them
+    assert {"randblas_tpu_torch.native", "randblas_tpu_torch.rng.x64"} \
+        <= names
+    assert {f"randblas_tpu_torch.linalg.{m}" for m in (
+        "features", "leverage", "trace", "nystrom", "eigh", "rpcholesky",
+        "amm", "qrcp", "krylov", "sgmres", "spectral", "rgs")} <= names
