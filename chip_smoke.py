@@ -113,6 +113,36 @@ and one profiled call (device busy time, idle share, top kernels):
 - (v) ``rand_geigh`` on the bench's pencil and on a planted one, and
   ``rand_eigh``, against float64 ``eigvalsh`` (K3 once).
 
+Phase 10 drives linalg groups 4-5 at ``benchmarks/linalg_bench.py``'s
+shapes with PyTorch's default TF32 setting (off), each path with its launch
+counts, every block it hands K3 held bit for bit against the plain fill,
+its time beside the library call's where there is one, one profiled call,
+and ``tests/test_tpu_hardware.py``'s case of the module at its own size and
+bounds (its float64 numpy oracles copied here, as the test modules import
+jax):
+
+- (w) ``single_pass_svd`` of (i)'s planted 32768 x 4096 matrix at rank 256
+  (K3 twice) against TYUC17's expected error and the same call in float64
+  on the same operators; ``StreamingSketch`` over 8 row chunks (K3 10
+  times) against it; ``FrequentDirections`` over 65536 x 1024, ell = 256,
+  by ``update`` in chunks of 4096 and by ``ingest``, and ``fd_pass``, bit
+  for bit equal, against the GLPW16 certificate (no kernel), one shrink
+  timed apart; beside float32 ``torch.linalg.svd`` and the exact Gram;
+- (x) on the implicit Gram of G (16384, 256) with 16 probes (K3 once a
+  call): ``spectral_density`` (60 steps), ``kpm_density`` (degree 128)
+  and ``eig_count`` against G^T G's 256 eigenvalues, ``logdet`` of
+  I + G G^T against float64 log det(I + G^T G), ``lanczos_fn_apply`` of
+  its square root against the float64 formula (no kernel), and the
+  Lanczos tridiagonals' batched eigendecomposition against float64 numpy;
+- (y) ``block_kaczmarz`` and ``block_gauss_seidel`` ('shuffle': K3 once,
+  'colnorm') on 65536 x 1024, block 512, 48 steps, against the port's CPU
+  run on the same inputs, beside float32 ``torch.linalg.lstsq``;
+- (z) ``tt_round`` of (64)^4 from rank 128 to 64 (K3 4 times),
+  ``tt_from_dense`` (3) and ``tucker_from_dense`` (4) of a 64^4 tensor,
+  ``tt_single_pass`` and a ``TTStream`` of 4 additive updates at rank 16
+  (8 each; their sketches against each other), and ``tt_matvec`` of a
+  rank-8 TT-matrix against the mode-by-mode contraction.
+
 For K1 and K2 it also prints the launch plan
 of the main path and of (b) (tiles, thread-block cluster, grid, contraction
 splits, how many times the operator is generated, and the card's
@@ -232,6 +262,37 @@ SGMRES_TOL = 1e-4     # (t) true relative residual
 RITZ_TOL = 1e-3       # (t), (v) eigenvalues, max abs err / max |ref|
 RGS_REC_TOL = 1e-5    # (u) ||QR - A|| / ||A||
 RGS_HW = (2e-4, 2e-3)  # (u) cond 3e7: reconstruction, ||Q^T Q - I||_2
+# phase 10's shapes, benchmarks/linalg_bench.py's: (w) (i)'s planted matrix
+# (m, n, rank) and FD's stream (m, n, ell, chunk), :334-381; (x) the
+# implicit Gram (n, G's columns, probes), :383-418; (y) Kaczmarz and
+# Gauss-Seidel (m, n, block, steps), :296-332; (z) the TT and Tucker tensors
+# (mode size, modes), :450-497
+PHASE10 = {"w": (32768, 4096, 256), "fd": (65536, 1024, 256, 4096),
+           "x": (16384, 256, 16), "y": (65536, 1024, 512, 48),
+           "z": (64, 4)}
+SPSVD_HW = (1e-2, 1.1e-2)  # (w) test_tpu_hardware.py:389-417: s to 1e-2
+                           # relative, reconstruction < 1.1e-2
+STREAM_TOL = 1e-5     # (w) StreamingSketch vs single_pass_svd, / s_1
+FD_HW = (1.02, 1e-3, 0.6)  # (w) test_tpu_hardware.py:588-620: gram error
+                           # <= mass * 1.02 + 1e-3 ||A||_F^2, mass <= 1.02
+                           # ||A||_F^2 / ell and < 0.6 of it
+TINY_EIGH_TOL = 1e-5  # (x) the tridiagonals' nodes (/ max |node|) and
+                      # weights (they sum to 1) vs float64 numpy.linalg.eigh
+LOGDET_TOL = 0.1      # (x) vs float64 log det: 16 Gaussian probes spread
+                      # ~2% (sqrt(2/16) ||log(I + G G^T)||_F / logdet)
+FN_TOL = 1e-4         # (x) sqrt(I + G G^T) B vs the float64 formula, / max
+COUNT_TOL = 0.1       # (x) eig_count vs 256 (16 Rademacher probes spread
+                      # ~2%), and the densities' cluster masses (as
+                      # test_tpu_hardware.py:537-585)
+DOS_TOTAL_TOL = 0.05  # (x) trapezoid(density) vs n (the same test's bound)
+KACZ_CPU_TOL = 1e-4   # (y) the card's x vs the port's CPU run, / max |x|
+KACZ_HW = (1e-3, 5e-3)  # (y) test_tpu_hardware.py:478-505
+TT_EXACT_TOL = 1e-3   # (z) rounding 2x (rank 64) back to rank 64, and the
+                      # single-pass recovery of a rank-16 tensor, relative
+TT_STREAM_TOL = 1e-5  # (z) TTStream's sketches Psi_k vs one pass's, / max
+TT_MATVEC_TOL = 1e-4  # (z) tt_matvec vs the mode-by-mode contraction
+TT_HW = 1e-2          # (z) test_tpu_hardware.py:798-840: exact recovery
+ORTH_HW = 2e-2        # (z) test_tpu_hardware.py:843-870: U^T U - I
 PEAK_BF16 = 989e12     # H100 SXM dense bf16 FLOP/s at 700 W (data sheet)
 PEAK_F32 = 67e12       # H100 SXM float32 FLOP/s outside the tensor cores
 PEAK_BYTES = 3.35e12   # H100 SXM HBM3 bytes/s
@@ -1566,6 +1627,735 @@ def solver_paths(rt, dev, drive, card, seed):
         torch.cuda.empty_cache()
 
 
+def tt_svd_oracle(x, ranks):
+    """Deterministic TT-SVD (Oseledets 2011) in float64 numpy, the
+    quasi-optimality baseline (tests/test_tt.py's oracle)."""
+    x = np.asarray(x, np.float64)
+    shape = x.shape
+    p = len(shape)
+    ranks = (ranks,) * (p - 1) if isinstance(ranks, int) else tuple(ranks)
+    cores = []
+    carry = x.reshape(1, -1)
+    r_prev = 1
+    for k in range(p - 1):
+        mat = carry.reshape(r_prev * shape[k], -1)
+        u, s, vt = np.linalg.svd(mat, full_matrices=False)
+        r = min(ranks[k], len(s))
+        cores.append(u[:, :r].reshape(r_prev, shape[k], r))
+        carry = s[:r, None] * vt[:r, :]
+        r_prev = r
+    cores.append(carry.reshape(r_prev, shape[-1], 1))
+    out = cores[0]
+    for g in cores[1:]:
+        out = np.einsum("a...b,bic->a...ic", out, g)
+    return out[0, ..., 0]
+
+
+def st_hosvd_oracle(x, ranks):
+    """Deterministic ST-HOSVD in float64 numpy (tests/test_tucker.py's
+    oracle)."""
+    x = np.asarray(x, np.float64)
+    p = x.ndim
+    ranks = (ranks,) * p if isinstance(ranks, int) else tuple(ranks)
+    cur = x.copy()
+    fac = []
+    for k in range(p):
+        mat = np.moveaxis(cur, k, 0).reshape(cur.shape[k], -1)
+        u = np.linalg.svd(mat, full_matrices=False)[0]
+        r = min(ranks[k], u.shape[1])
+        uk = u[:, :r]
+        fac.append(uk)
+        cur = np.moveaxis((uk.T @ mat).reshape(
+            (r,) + cur.shape[:k] + cur.shape[k + 1:]), 0, k)
+    rec = cur
+    for k, u in enumerate(fac):
+        rec = np.moveaxis(np.tensordot(u, rec, axes=(1, k)), 0, k)
+    return rec
+
+
+def rank_one_sum(rng, shape, terms, decay=0.5):
+    """sum_t decay^t a_t o b_t o c_t ... in float64 numpy (the hardware
+    tests' decaying-spectrum tensors)."""
+    y = np.zeros(shape, np.float64)
+    for t in range(terms):
+        vs = [rng.standard_normal(sz) for sz in shape]
+        out = vs[0]
+        for v in vs[1:]:
+            out = np.multiply.outer(out, v)
+        y += (decay ** t) * out
+    return y
+
+
+def tt_matvec_plain(cores, xd):
+    """A TT-matrix (its cores) applied to the dense tensor ``xd`` one mode
+    at a time, never forming the matrix: after mode k the carry holds
+    (o_1..o_k, R_k, i_(k+1)..i_p)."""
+    p = len(cores)
+    outs, ins = "abcdefghij"[:p], "klmnopqrst"[:p]
+    t = xd[None]
+    for k, g in enumerate(cores):
+        t = torch.einsum(f"{outs[:k]}Y{ins[k:]},Y{outs[k]}{ins[k]}Z->"
+                         f"{outs[:k + 1]}Z{ins[k + 1:]}", t, g)
+    return t[..., 0]
+
+
+def measure_err(theta, vecs, w64, v64):
+    """How far the Gauss quadratures of a batch of tridiagonals (nodes
+    ``theta``, eigenvectors ``vecs``) lie from float64 numpy's (``w64``,
+    ``v64``): (max node error / max |node|, max error of the weights
+    e1^T v squared, how many nodes were merged). Nodes within TINY_EIGH_TOL
+    max |node| of a neighbour are numerically one, and only their summed
+    weight is defined, so weights are compared summed over such runs."""
+    th = theta.double().cpu().numpy()
+    tau = (vecs[:, 0, :].double() ** 2).cpu().numpy()
+    tau64 = v64[:, 0, :] ** 2
+    scale = np.abs(w64).max()
+    node_err = float(np.abs(th - w64).max() / scale)
+    weight_err, merged = 0.0, 0
+    for p in range(w64.shape[0]):
+        run = np.concatenate([[0], np.cumsum(np.diff(w64[p])
+                                             > TINY_EIGH_TOL * scale)])
+        merged += len(run) - 1 - int(run[-1])
+        weight_err = max(weight_err, float(np.abs(
+            np.bincount(run, tau[p]) - np.bincount(run, tau64[p])).max()))
+    return node_err, weight_err, merged
+
+
+def tier45_paths(rt, dev, drive, card, seed):
+    """Phase 10: linalg groups 4-5 at the benchmarks' shapes, paths (w) to
+    (z), each against its check, with its launch counts, K3's blocks held
+    bit for bit against the plain fill, its time (CUDA events, median of 5
+    after a warm-up) beside the library call's where there is one, one
+    profiled call, and the sharp checks of test_tpu_hardware.py with their
+    bounds. The data are made on the card from ``seed``."""
+    import contextlib
+    import math
+    from randblas_tpu_torch import dense as tdense
+    from randblas_tpu_torch import linalg as la
+    from randblas_tpu_torch.linalg import quadrature as quad
+    from randblas_tpu_torch.linalg import streaming as stm
+    from randblas_tpu_torch.linalg import tt as ttmod
+    from randblas_tpu_torch.ops import fused_sketch as fs
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    print("phase 10: linalg groups 4-5, paths (w)-(z), with PyTorch's "
+          "default TF32 setting (allow_tf32 False; path (i) switched it on "
+          f"for cholqr alone) [{card}]")
+    gen = torch.Generator(device=dev).manual_seed(seed + 2)
+
+    def randn(*shape, dtype=torch.float32):
+        return torch.randn(*shape, generator=gen, device=dev, dtype=dtype)
+
+    def on_card(x):
+        return torch.as_tensor(np.ascontiguousarray(x)).to(dev)
+
+    def rel(x, ref):
+        """max |x - ref| / max |ref|, in float64."""
+        x, ref = x.double(), ref.double()
+        return ((x - ref).abs().max() / ref.abs().max()).item()
+
+    def fro_rel(x, ref):
+        x, ref = x.double(), ref.double()
+        return ((x - ref).norm() / ref.norm()).item()
+
+    def timed(label, fn, lib=None, lib_name="", reps=5):
+        ms = time_ms(fn, reps=reps)
+        lib_ms = None if lib is None else time_ms(lib, reps=reps)
+        lib_txt = "" if lib is None else f"; {lib_name} {lib_ms:.3f} ms"
+        print(f"time {label}: {ms:.3f} ms{lib_txt} [{card}]")
+        return ms
+
+    @contextlib.contextmanager
+    def k3_recorded():
+        """Every block the lazy fill route hands K3 while the block runs:
+        its arguments and its output."""
+        calls, orig = [], fs._fill
+
+        def spy(dist, state, rows, cols, ro, co, device, transform, scale):
+            out = orig(dist, state, rows, cols, ro, co, device, transform,
+                       scale)
+            calls.append((dist, state, rows, cols, ro, co, out))
+            return out
+
+        fs._fill = spy
+        try:
+            yield calls
+        finally:
+            fs._fill = orig
+
+    def rdrive(label, fn, expect):
+        """``drive`` (launch counts), then each K3 block of the run against
+        the plain fill of the same block, bit for bit."""
+        with k3_recorded() as calls:
+            out, got = drive(label, fn, expect)
+        blocks = []
+        for dist, state, rows, cols, ro, co, vals in calls:
+            got_blk = tdense._cast_and_scale(vals, dist, torch.float32)
+            want = tdense.fill_dense_submat_reference(
+                dist, state, rows, cols, ro, co, torch.float32, dev)
+            check(torch.equal(got_blk, want), f"{label}: K3's ({rows}, "
+                  f"{cols}) block of DenseDist({dist.n_rows}, {dist.n_cols})"
+                  f" at ({ro}, {co}) is not the plain fill's")
+            blocks.append(f"{rows}x{cols}@({ro},{co}) of "
+                          f"{dist.n_rows}x{dist.n_cols} {dist.family.name}")
+        if blocks:
+            print(f"{label}: K3 bit for bit the plain fill on its "
+                  f"{len(blocks)} blocks: {'; '.join(sorted(set(blocks)))}")
+        return out, got
+
+    # -- (w) one-pass SVD, StreamingSketch, Frequent Directions -----------
+    def path_w():
+        mw, nw, rw = PHASE10["w"]
+        A, sig = planted(randn, mw, nw, rw)
+        st_w = rt.RNGState.from_key(seed + 41)
+        (u, s, vt, _), _ = rdrive(
+            f"(w) single_pass_svd {mw}x{nw}, rank {rw}",
+            lambda: la.single_pass_svd(A, rw, st_w), {"K3": 2})
+        approx = (u * s) @ vt
+        opt = sig[rw:].double().norm().item()
+        err = (A.double() - approx.double()).norm().item()
+        k_w, l_w = stm._sketch_dims(mw, nw, rw, 8, 2.0)
+        # TYUC17 thm 4.3 at rho = rank: E||A - A_hat||_F^2 <= (1 + f(k, l))
+        # (1 + f(rank, k)) ||A - A_rank||_F^2, f(s, t) = s / (t - s - 1)
+        factor = math.sqrt((1 + k_w / (l_w - k_w - 1))
+                           * (1 + rw / (k_w - rw - 1)))
+        check(err <= factor * opt, f"(w) single_pass_svd: ||A - USV^T||_F "
+              f"{err} vs {factor} x the optimum {opt}")
+        A64 = A.double()
+        (u64, s64, vt64, _), _ = rdrive(
+            "(w) single_pass_svd in float64, the same operators",
+            lambda: la.single_pass_svd(A64, rw, st_w, dtype=torch.float64),
+            {"K3": 2})
+        d_s = ((s.double() - s64).abs().max() / s64[0]).item()
+        d_usv = (((u64 * s64) @ vt64 - approx.double()).abs().max()
+                 / s64[0]).item()
+        check(d_s <= RSVD_TOL and d_usv <= RSVD_TOL,
+              f"(w) single_pass_svd float32 vs float64: {d_s}, {d_usv}")
+        print(f"(w) single_pass_svd: ||A - U S V^T||_F {err:.4g} = "
+              f"{err / opt:.3f} x the optimal ||A - A_{rw}||_F {opt:.4g} "
+              f"(TYUC17's expected factor at k = {k_w}, l = {l_w}: "
+              f"{factor:.3f}); against the same call in float64 on the same "
+              f"operators: singular values {d_s:.3g}, U S V^T max abs "
+              f"{d_usv:.3g}, / s_1 (<= {RSVD_TOL})")
+        del A64, u64, s64, vt64
+        chunks = 8
+        bounds_ = [mw * i // chunks for i in range(chunks + 1)]
+
+        def stream():
+            sk = la.StreamingSketch(mw, nw, rw, st_w)
+            for lo, hi in zip(bounds_[:-1], bounds_[1:]):
+                sk.update(lo, A[lo:hi])
+            return sk.finalize()
+
+        (su, ss, svt), _ = rdrive(
+            f"(w) StreamingSketch {mw}x{nw} in {chunks} row chunks",
+            stream, {"K3": chunks + 2})
+        ds = ((ss - s).abs().max() / s[0]).item()
+        drec = ((((su * ss) @ svt) - approx).abs().max() / s[0]).item()
+        check(ds <= STREAM_TOL and drec <= STREAM_TOL,
+              f"(w) StreamingSketch vs single_pass_svd: s {ds}, U S V^T "
+              f"{drec}")
+        print(f"(w) StreamingSketch vs single_pass_svd: singular values "
+              f"{ds:.3g}, U S V^T max abs {drec:.3g}, / s_1 (<= "
+              f"{STREAM_TOL})")
+        del su, ss, svt, approx, u, s, vt
+        sp_ms = timed("(w) single_pass_svd",
+                      lambda: la.single_pass_svd(A, rw, st_w))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        torch.linalg.svd(A, full_matrices=False)
+        torch.cuda.synchronize()
+        svd_ms = (time.perf_counter() - t0) * 1e3
+        st_ms = timed("(w) StreamingSketch, 8 chunks", stream)
+        print(f"(w) single_pass_svd {sp_ms:.3f} ms, StreamingSketch "
+              f"{st_ms:.3f} ms; float32 torch.linalg.svd of the matrix "
+              f"{svd_ms:.1f} ms (one call, host clock) [{card}]")
+        breakdown("(w) single_pass_svd",
+                  lambda: la.single_pass_svd(A, rw, st_w), card)
+        del A
+        # test_tpu_hardware.py:389-417, with its bounds
+        rng = np.random.default_rng(17)
+        m_h, n_h, r_h = 2048, 512, 16
+        uh, _ = np.linalg.qr(rng.normal(size=(m_h, r_h)))
+        vh, _ = np.linalg.qr(rng.normal(size=(n_h, r_h)))
+        s_true = np.linspace(10.0, 1.0, r_h)
+        a_np = ((uh * s_true) @ vh.T).astype(np.float32)
+        a_h = on_card(a_np + 1e-4 * rng.normal(size=(m_h, n_h)).astype(
+            np.float32))
+        (uu, ss, vv, _), _ = rdrive(
+            "(w) single_pass_svd, test_tpu_hardware.py's rank-16 case",
+            lambda: la.single_pass_svd(a_h, r_h, rt.RNGState.from_key(35),
+                                       oversample=8), {"K3": 2})
+        s_rel = float(np.max(np.abs(ss.cpu().numpy() - s_true) / s_true))
+        rec = float(np.linalg.norm(a_np - ((uu * ss) @ vv).cpu().numpy())
+                    / np.linalg.norm(a_np))
+        check(s_rel <= SPSVD_HW[0] and rec < SPSVD_HW[1],
+              f"(w) hardware case: s {s_rel}, reconstruction {rec}")
+        print(f"(w) test_tpu_hardware.py:389-417: s vs planted {s_rel:.3g} "
+              f"<= {SPSVD_HW[0]}, reconstruction {rec:.4g} < {SPSVD_HW[1]} "
+              f"(the CPU oracle's floor is 8.587e-3)")
+
+        mf, nf, ell, chunk = PHASE10["fd"]
+        Af = randn(mf, nf)
+
+        def fd_update():
+            fd = la.FrequentDirections(nf, ell)
+            for i in range(0, mf, chunk):
+                fd.update(Af[i:i + chunk])
+            return fd.sketch(), fd.shrink_mass
+
+        def fd_ingest():
+            fd = la.FrequentDirections(nf, ell)
+            fd.ingest(Af)
+            return fd.sketch(), fd.shrink_mass
+
+        outs, stream_ms = [], []
+        for label, fn in ((f"(w) FrequentDirections.update {mf}x{nf}, ell "
+                           f"{ell}, chunks of {chunk}", fd_update),
+                          ("(w) FrequentDirections.ingest", fd_ingest),
+                          ("(w) fd_pass", lambda: la.fd_pass(Af, ell))):
+            t0 = time.perf_counter()
+            outs.append(rdrive(label, fn, {})[0])
+            stream_ms.append((time.perf_counter() - t0) * 1e3)
+        (bu, mu), (bi, mi), (bp, mp) = outs
+        check(torch.equal(bu, bi) and torch.equal(mu, mi)
+              and torch.equal(bp, bi) and torch.equal(mp, mi),
+              "(w) FD: update, ingest and fd_pass differ")
+        a64 = Af.double()
+        gram = a64.T @ a64
+        fro2 = torch.trace(gram).item()
+        b64 = bu.double()
+        gram_err = torch.linalg.eigvalsh(gram - b64.T @ b64).abs().max(
+        ).item()
+        mass = mu.item()
+        check(gram_err <= mass * FD_HW[0] + FD_HW[1] * fro2
+              and mass <= FD_HW[0] * fro2 / ell,
+              f"(w) FD certificate: {gram_err}, {mass}, {fro2 / ell}")
+        print(f"(w) FD: update, ingest and fd_pass bit for bit equal; "
+              f"||A^T A - B^T B||_2 {gram_err:.6g} <= shrink_mass "
+              f"{mass:.6g} <= ||A||_F^2 / ell {fro2 / ell:.6g}")
+        del a64, gram, b64
+        gram_ms = time_ms(lambda: Af.T @ Af)
+        buf = Af[:2 * ell].contiguous()
+        g_ = buf @ buf.T
+        g64 = g_.double()
+        sh_ms = time_ms(lambda: stm._fd_shrink(buf, ell))
+        eigh_ms = time_ms(lambda: torch.linalg.eigh(g64))
+        eigh32_ms = time_ms(lambda: torch.linalg.eigh(g_))
+        w64 = torch.linalg.eigvalsh(g64)
+        e32 = ((torch.linalg.eigvalsh(g_).double() - w64).abs().max()
+               / w64.abs().max()).item()
+        n_sh = mf // ell - 1
+        print(f"time (w) FD, one stream each (host clock, the first call): "
+              f"update {stream_ms[0]:.1f} ms, ingest {stream_ms[1]:.1f} ms, "
+              f"fd_pass {stream_ms[2]:.1f} ms; {n_sh} shrinks a stream, one "
+              f"shrink {sh_ms:.3f} ms (of it the {2 * ell}x{2 * ell} float64 "
+              f"eigh {eigh_ms:.3f} ms; a float32 eigh of the same Gram "
+              f"{eigh32_ms:.3f} ms, its eigenvalues {e32:.3g} of the largest "
+              f"from float64's), {n_sh} x one shrink = {n_sh * sh_ms:.1f} ms;"
+              f" float32 A^T A (the exact Gram) {gram_ms:.3f} ms [{card}]")
+        breakdown("(w) FrequentDirections.ingest", fd_ingest, card)
+        del Af
+        # test_tpu_hardware.py:588-620, with its bounds
+        rng = np.random.default_rng(23)
+        m_h, n_h, ell_h = 2048, 256, 64
+        a_hw = rng.standard_normal((m_h, n_h)) * 2.0 ** (
+            -np.arange(n_h) / 16.0)
+        a_c = on_card(a_hw.astype(np.float32))
+
+        def fd_hw():
+            fd = la.FrequentDirections(n_h, ell_h)
+            for i in range(0, m_h, 160):
+                fd.update(a_c[i:i + 160])
+            return fd.sketch(), fd.shrink_mass
+
+        (bh, mh), _ = rdrive("(w) FrequentDirections, test_tpu_hardware.py's"
+                             " case", fd_hw, {})
+        bh = bh.cpu().double().numpy()
+        mass = mh.item()
+        gram_err = np.linalg.norm(a_hw.T @ a_hw - bh.T @ bh, 2)
+        fro2 = np.linalg.norm(a_hw, "fro") ** 2
+        check(gram_err <= mass * FD_HW[0] + FD_HW[1] * fro2
+              and mass <= FD_HW[0] * fro2 / ell_h
+              and mass < FD_HW[2] * fro2 / ell_h,
+              f"(w) FD hardware case: {gram_err}, {mass}, {fro2 / ell_h}")
+        print(f"(w) test_tpu_hardware.py:588-620: ||A^T A - B^T B||_2 "
+              f"{gram_err:.5g} <= mass {mass:.5g} (x {FD_HW[0]} + "
+              f"{FD_HW[1]} ||A||_F^2) and mass < {FD_HW[2]} ||A||_F^2 / ell "
+              f"= {FD_HW[2] * fro2 / ell_h:.5g}")
+
+    # -- (x) Lanczos quadrature and spectral densities --------------------
+    def path_x():
+        nx, kx, px = PHASE10["x"]
+        G = randn(nx, kx) / math.sqrt(kx)
+        lam = torch.linalg.eigvalsh(G.double().T @ G.double())
+        lmin, lmax = lam[0].item(), lam[-1].item()
+
+        def gram_mv(x):
+            return G @ (G.T @ x)
+
+        def shifted_mv(x):
+            return x + G @ (G.T @ x)
+
+        st_x = rt.RNGState.from_key(seed + 43)
+        print(f"(x) G {nx}x{kx}: G^T G's eigenvalues {lmin:.4g} to "
+              f"{lmax:.4g} (float64), {nx - kx} zeros in G G^T")
+        # the batched tiny eigh: Lanczos tridiagonals of this Gram on the
+        # card, decomposed by the port's helper and by float64 numpy
+        v0, _ = la.rademacher_probes(nx, px, st_x, device=dev)
+        for steps in (30, 60):
+            al, be, _, _ = quad._block_lanczos_tridiag(gram_mv, v0, steps)
+            theta, vecs = quad._tridiag_eigh(al, be)
+            raw_t, raw_v = torch.linalg.eigh(
+                torch.diag_embed(al) + torch.diag_embed(be, 1)
+                + torch.diag_embed(be, -1))
+            a64, b64 = al.double(), be.double()
+            w64, v64 = np.linalg.eigh(
+                (torch.diag_embed(a64) + torch.diag_embed(b64, 1)
+                 + torch.diag_embed(b64, -1)).cpu().numpy())
+            tau64 = v64[:, 0, :] ** 2
+            errs = [measure_err(th, vv, w64, v64)
+                    for th, vv in ((theta, vecs), (raw_t, raw_v))]
+            print(f"(x) tiny eigh, {px} tridiagonals of {steps}: the port's "
+                  f"nodes {errs[0][0]:.3g} (/ max |node|) and weights "
+                  f"{errs[0][1]:.3g} from float64 numpy; float32 "
+                  f"torch.linalg.eigh on the card {errs[1][0]:.3g} and "
+                  f"{errs[1][1]:.3g} (tolerance {TINY_EIGH_TOL}; weights "
+                  f"summed over the {errs[0][2]} nodes within "
+                  f"{TINY_EIGH_TOL} max |node| of a neighbour)")
+            check(max(errs[0][:2]) <= TINY_EIGH_TOL,
+                  f"(x) tiny eigh at {steps} steps: {errs[0]}")
+        del v0
+        (grid, dens, _), _ = rdrive(
+            f"(x) spectral_density n={nx}, {px} probes x 60 steps",
+            lambda: la.spectral_density(gram_mv, st_x, probes=px, steps=60,
+                                        n=nx), {"K3": 1})
+        total = torch.trapezoid(dens.double(), grid.double()).item()
+        hi_mass = torch.trapezoid(torch.where(grid > lmin / 2, dens, 0.0)
+                                  .double(), grid.double()).item()
+        check(abs(total - nx) <= DOS_TOTAL_TOL * nx
+              and abs(hi_mass - kx) <= COUNT_TOL * kx,
+              f"(x) spectral_density: total {total}, cluster {hi_mass}")
+        (gk, dk, _), _ = rdrive(
+            f"(x) kpm_density n={nx}, {px} probes, degree 128",
+            lambda: la.kpm_density(gram_mv, st_x, probes=px, degree=128,
+                                   bounds=(-0.5, 1.1 * lmax), n=nx),
+            {"K3": 1})
+        totk = torch.trapezoid(dk.double(), gk.double()).item()
+        hik = torch.trapezoid(torch.where(gk > lmin / 2, dk, 0.0).double(),
+                              gk.double()).item()
+        check(abs(totk - nx) <= DOS_TOTAL_TOL * nx
+              and abs(hik - kx) <= COUNT_TOL * kx,
+              f"(x) kpm_density: total {totk}, cluster {hik}")
+        print(f"(x) densities (counting normalization): SLQ total {total:.1f}"
+              f", mass above {lmin / 2:.3g} {hi_mass:.2f}; KPM total "
+              f"{totk:.1f}, mass above {lmin / 2:.3g} {hik:.2f} (n {nx}, "
+              f"{kx} nonzero eigenvalues; bounds {DOS_TOTAL_TOL} and "
+              f"{COUNT_TOL})")
+        (cnt, _), _ = rdrive(
+            "(x) eig_count over [lmin / 2, 2 lmax]",
+            lambda: la.eig_count(gram_mv, lmin / 2, 2 * lmax, st_x,
+                                 probes=px, steps=60, n=nx), {"K3": 1})
+        check(abs(cnt.item() - kx) <= COUNT_TOL * kx, f"(x) eig_count {cnt}")
+        exact_ld = torch.log1p(lam).sum().item()
+        (ld, _), _ = rdrive(
+            f"(x) logdet(I + G G^T), {px} probes x 30 steps",
+            lambda: la.logdet(shifted_mv, st_x, probes=px, steps=30, n=nx),
+            {"K3": 1})
+        check(abs(ld.item() - exact_ld) <= LOGDET_TOL * exact_ld,
+              f"(x) logdet {ld.item()} vs {exact_ld}")
+        B = randn(nx, 8)
+        fx, _ = rdrive(
+            "(x) lanczos_fn_apply sqrt(I + G G^T) B, 8 columns, 30 steps",
+            lambda: la.lanczos_fn_apply(shifted_mv, torch.sqrt, B, steps=30,
+                                        n=nx), {})
+        ug, sg, _ = torch.linalg.svd(G.double(), full_matrices=False)
+        want = B.double() + ug @ ((torch.sqrt(1 + sg ** 2) - 1)[:, None]
+                                  * (ug.T @ B.double()))
+        fn_err = rel(fx, want)
+        check(fn_err <= FN_TOL, f"(x) lanczos_fn_apply: {fn_err}")
+        print(f"(x) eig_count {cnt.item():.3f} vs {kx} (<= {COUNT_TOL} "
+              f"relative); logdet {ld.item():.6g} vs float64 log det(I + "
+              f"G^T G) {exact_ld:.6g} (<= {LOGDET_TOL}); lanczos_fn_apply "
+              f"vs the float64 formula through G's thin SVD {fn_err:.3g} "
+              f"(<= {FN_TOL})")
+        del ug, want
+        timed("(x) spectral_density, 60 steps",
+              lambda: la.spectral_density(gram_mv, st_x, probes=px, steps=60,
+                                          n=nx))
+        timed("(x) kpm_density, degree 128",
+              lambda: la.kpm_density(gram_mv, st_x, probes=px, degree=128,
+                                     bounds=(-0.5, 1.1 * lmax), n=nx))
+        timed("(x) eig_count, 60 steps",
+              lambda: la.eig_count(gram_mv, lmin / 2, 2 * lmax, st_x,
+                                   probes=px, steps=60, n=nx))
+        dense = torch.eye(nx, device=dev) + G @ G.T
+        timed("(x) logdet, 30 steps",
+              lambda: la.logdet(shifted_mv, st_x, probes=px, steps=30, n=nx),
+              lambda: torch.linalg.slogdet(dense),
+              "float32 torch.linalg.slogdet of the dense I + G G^T")
+        del dense
+        timed("(x) lanczos_fn_apply, 30 steps",
+              lambda: la.lanczos_fn_apply(shifted_mv, torch.sqrt, B,
+                                          steps=30, n=nx))
+        for label, fn in (
+                ("(x) spectral_density", lambda: la.spectral_density(
+                    gram_mv, st_x, probes=px, steps=60, n=nx)),
+                ("(x) kpm_density", lambda: la.kpm_density(
+                    gram_mv, st_x, probes=px, degree=128,
+                    bounds=(-0.5, 1.1 * lmax), n=nx))):
+            breakdown(label, fn, card)
+        del G, B
+        # test_tpu_hardware.py:537-585's clustered spectrum, with its bounds
+        rng = np.random.default_rng(22)
+        n_h = 1024
+        counts_h = {-2.0: 200, 0.5: 500, 3.0: 324}
+        lam_h = np.concatenate([c + 0.02 * rng.standard_normal(k)
+                                for c, k in counts_h.items()])
+        uh, _ = np.linalg.qr(rng.standard_normal((n_h, n_h)))
+        a_h = on_card(((uh * lam_h) @ uh.T).astype(np.float32))
+        masses = []
+        for name, fn in (
+                ("spectral_density", lambda: la.spectral_density(
+                    a_h, rt.RNGState.from_key(50), probes=16, steps=80)),
+                ("kpm_density", lambda: la.kpm_density(
+                    a_h, rt.RNGState.from_key(52), degree=256, probes=16,
+                    npts=801, bounds=(float(lam_h.min()) - 0.3,
+                                      float(lam_h.max()) + 0.3)))):
+            (g_h, d_h, _), _ = rdrive(f"(x) {name}, test_tpu_hardware.py's "
+                                      "clustered spectrum", fn, {"K3": 1})
+            g_h = g_h.double().cpu().numpy()
+            d_h = d_h.double().cpu().numpy()
+            check(np.all(np.isfinite(d_h)) and np.all(d_h > -1e-6),
+                  f"(x) {name}: non-finite or negative density")
+            tot = np.trapezoid(d_h, g_h)
+            check(abs(tot - n_h) / n_h < DOS_TOTAL_TOL,
+                  f"(x) {name}: total {tot}")
+            for c, k in counts_h.items():
+                mask = (g_h >= c - 1.0) & (g_h <= c + 1.0)
+                mass = np.trapezoid(np.where(mask, d_h, 0.0), g_h)
+                check(abs(mass - k) / k < COUNT_TOL,
+                      f"(x) {name}: cluster {c} mass {mass} vs {k}")
+                masses.append(f"{mass:.1f}")
+        (c_h, _), _ = rdrive(
+            "(x) eig_count, test_tpu_hardware.py's middle cluster",
+            lambda: la.eig_count(a_h, -0.5, 1.5, rt.RNGState.from_key(51),
+                                 probes=16, steps=80), {"K3": 1})
+        check(abs(c_h.item() - 500) / 500 < COUNT_TOL,
+              f"(x) hardware eig_count {c_h.item()}")
+        print(f"(x) test_tpu_hardware.py:537-585: cluster masses (SLQ, then "
+              f"KPM) {', '.join(masses)} vs 200, 500, 324; eig_count "
+              f"{c_h.item():.2f} vs 500 (each within {COUNT_TOL})")
+
+    # -- (y) block Kaczmarz and block Gauss-Seidel ------------------------
+    def path_y():
+        my, ny, blk, steps = PHASE10["y"]
+        Ay = randn(my, ny)
+        xt = randn(ny)
+        by = Ay @ xt
+        Ac, bc = Ay.cpu(), by.cpu()
+        st_y = rt.RNGState.from_key(seed + 45)
+        runs = (("block_kaczmarz", la.block_kaczmarz, {}, {}),
+                ("block_gauss_seidel shuffle", la.block_gauss_seidel,
+                 {"sampling": "shuffle"}, {"K3": 1}),
+                ("block_gauss_seidel colnorm", la.block_gauss_seidel,
+                 {"sampling": "colnorm"}, {}))
+        for name, fn, kw, expect in runs:
+            def call(a=Ay, b=by, fn=fn, kw=kw):
+                return fn(a, b, st_y, block=blk, steps=steps, **kw)
+
+            (x, _), _ = rdrive(f"(y) {name} {my}x{ny}, block {blk}, {steps} "
+                               "steps", call, expect)
+            t0 = time.perf_counter()
+            x_cpu, _ = call(Ac, bc)
+            cpu_s = time.perf_counter() - t0
+            err_cpu = rel(x.cpu(), x_cpu)
+            err = fro_rel(x, xt)
+            check(err_cpu <= KACZ_CPU_TOL and bool(torch.isfinite(x).all()),
+                  f"(y) {name}: card vs CPU {err_cpu}")
+            ms = timed(f"(y) {name}", call,
+                       lambda: torch.linalg.lstsq(Ay, by[:, None]),
+                       "float32 torch.linalg.lstsq")
+            print(f"(y) {name}: the card's x vs the port's CPU run "
+                  f"({cpu_s:.1f} s, host clock) {err_cpu:.3g} <= "
+                  f"{KACZ_CPU_TOL}; ||x - x_true|| / ||x_true|| {err:.3g} "
+                  f"after {steps} steps; {ms:.3f} ms [{card}]")
+            breakdown(f"(y) {name}", call, card)
+        del Ay, Ac
+        # test_tpu_hardware.py:478-505, with its bounds
+        rng = np.random.default_rng(20)
+        m_h, n_h = 4096, 256
+        a_np = rng.standard_normal((m_h, n_h)).astype(np.float32)
+        xt_h = rng.standard_normal(n_h).astype(np.float32)
+        a_h = on_card(a_np)
+        b_h = a_h @ on_card(xt_h)
+        (xk, _), _ = rdrive(
+            "(y) block_kaczmarz, test_tpu_hardware.py's case",
+            lambda: la.block_kaczmarz(a_h, b_h, rt.RNGState.from_key(39),
+                                      block=256, steps=30), {})
+        e1 = float(np.linalg.norm(xk.cpu().numpy() - xt_h)
+                   / np.linalg.norm(xt_h))
+        bn = b_h + on_card(rng.standard_normal(m_h).astype(np.float32))
+        xls = np.linalg.lstsq(a_np.astype(np.float64),
+                              bn.cpu().double().numpy(), rcond=None)[0]
+        (xg, _), _ = rdrive(
+            "(y) block_gauss_seidel, test_tpu_hardware.py's case",
+            lambda: la.block_gauss_seidel(a_h, bn, rt.RNGState.from_key(40),
+                                          block=128, steps=60), {"K3": 1})
+        e2 = float(np.linalg.norm(xg.cpu().numpy() - xls)
+                   / np.linalg.norm(xls))
+        check(e1 < KACZ_HW[0] and e2 < KACZ_HW[1],
+              f"(y) hardware case: {e1}, {e2}")
+        print(f"(y) test_tpu_hardware.py:478-505: Kaczmarz {e1:.3g} < "
+              f"{KACZ_HW[0]}, Gauss-Seidel vs float64 lstsq {e2:.3g} < "
+              f"{KACZ_HW[1]}")
+
+    # -- (z) TT and Tucker -------------------------------------------------
+    def path_z():
+        nz, pz = PHASE10["z"]
+        shape = (nz,) * pz
+        st_z = rt.RNGState.from_key(seed + 47)
+        x, st1 = la.tt_gaussian(shape, 64, st_z)
+        s2 = la.tt_add(x, x)
+        (r, _), _ = rdrive(
+            f"(z) tt_round {shape} ranks 128 -> 64, oversample 8",
+            lambda: la.tt_round(s2, 64, st1, oversample=8), {"K3": pz})
+        xf = x.full()
+        err_r = fro_rel(r.full(), 2 * xf)
+        check(r.ranks == (1,) + (64,) * (pz - 1) + (1,)
+              and err_r <= TT_EXACT_TOL, f"(z) tt_round: {r.ranks}, {err_r}")
+        dense = randn(*shape)
+        (tt, _), _ = rdrive(f"(z) tt_from_dense {shape}, rank 64",
+                            lambda: la.tt_from_dense(dense, 64, st1),
+                            {"K3": pz - 1})
+        e_tt = fro_rel(tt.full(), dense)
+        (core, facs, _), _ = rdrive(
+            f"(z) tucker_from_dense {shape}, rank 32",
+            lambda: la.tucker_from_dense(dense, 32, st1), {"K3": pz})
+        e_tk = fro_rel(la.tucker_full(core, facs), dense)
+        orth = max((f.T @ f - torch.eye(f.shape[1], device=dev)).abs().max()
+                   .item() for f in facs)
+        check(e_tt <= 1.0 and e_tk <= 1.0 and orth <= 1e-4,
+              f"(z) from_dense: {e_tt}, {e_tk}, {orth}")
+        print(f"(z) tt_round of 2x back to rank 64 vs 2x {err_r:.3g} (<= "
+              f"{TT_EXACT_TOL}); a Gaussian 64^4 tensor's relative error "
+              f"at TT rank 64 {e_tt:.4f}, at Tucker rank 32 {e_tk:.4f} (a "
+              f"projection: <= 1), Tucker factors' max |U^T U - I| "
+              f"{orth:.3g}")
+        xs_tt, st2 = la.tt_gaussian(shape, 16, st1)
+        xs = xs_tt.full()
+        del xs_tt
+        (sp, _), _ = rdrive(f"(z) tt_single_pass {shape}, rank 16",
+                            lambda: la.tt_single_pass(xs, 16, st2),
+                            {"K3": 2 * pz})
+
+        def stream_of():
+            ts_ = la.TTStream(shape, 16, st2)
+            for w in (0.1, 0.2, 0.3, 0.4):
+                ts_.update(w * xs)
+            return ts_
+
+        def stream():
+            return stream_of().recover()
+
+        tso, _ = rdrive("(z) TTStream, 4 additive updates", stream_of,
+                        {"K3": 2 * pz})
+        ss = tso.recover()
+        # the stream holds the same linear sketches Psi_k as one pass over
+        # the sum; the recoveries Phi^+ Psi then differ by their rounding
+        # times cond(Phi_k)
+        psis = ttmod._stta_sketch(xs, tso._r_tt, tso._l_tt, torch.float32)
+        d_psi = max(rel(a, b) for a, b in zip(tso._psis, psis))
+        kappa = max(torch.linalg.cond(torch.einsum(
+            "ljb,ajb->la", psi, tso._r_tt.cores[k])).item()
+            for k, psi in enumerate(psis[1:], 1))
+        d_ss = rel(ss.full(), sp.full())
+        e_sp = fro_rel(sp.full(), xs)
+        e_ss = fro_rel(ss.full(), xs)
+        check(d_psi <= TT_STREAM_TOL and max(e_sp, e_ss) <= TT_EXACT_TOL,
+              f"(z) STTA: sketches {d_psi}, recoveries {e_sp}, {e_ss}")
+        mat, _ = la.tt_matrix_gaussian(shape, shape, 8, st2)
+        y, _ = rdrive("(z) tt_matvec, a rank-8 TT-matrix on the rounded "
+                      "tensor", lambda: la.tt_matvec(mat, r), {})
+        y_ref = tt_matvec_plain(mat.cores, r.full())
+        e_mv = rel(y.full(), y_ref)
+        check(y.ranks == (1,) + (8 * 64,) * (pz - 1) + (1,)
+              and e_mv <= TT_MATVEC_TOL, f"(z) tt_matvec: {y.ranks}, {e_mv}")
+        del y_ref
+        print(f"(z) TTStream vs tt_single_pass: the sketches Psi_k "
+              f"{d_psi:.3g} (<= {TT_STREAM_TOL}), the recovered tensors "
+              f"{d_ss:.3g} (max cond(Phi_k) {kappa:.4g}); the rank-16 tensor "
+              f"recovered to {e_sp:.3g} and {e_ss:.3g} (<= {TT_EXACT_TOL}); "
+              f"tt_matvec (ranks {y.ranks[1]}) vs the mode-by-mode "
+              f"contraction {e_mv:.3g} (<= {TT_MATVEC_TOL})")
+        del y
+        for label, fn in (
+                ("tt_round 128 -> 64", lambda: la.tt_round(s2, 64, st1,
+                                                            oversample=8)),
+                ("tt_from_dense rank 64",
+                 lambda: la.tt_from_dense(dense, 64, st1)),
+                ("tucker_from_dense rank 32",
+                 lambda: la.tucker_from_dense(dense, 32, st1)),
+                ("tt_single_pass rank 16",
+                 lambda: la.tt_single_pass(xs, 16, st2)),
+                ("TTStream, 4 updates", stream),
+                ("tt_matvec rank 8", lambda: la.tt_matvec(mat, r))):
+            timed(f"(z) {label}", fn)
+            breakdown(f"(z) {label}", fn, card)
+        del x, s2, r, dense, xs, xf
+        # test_tpu_hardware.py:798-870, with its bounds
+        x_h, _ = la.tt_gaussian((8, 9, 7, 6), (3, 4, 2),
+                                rt.RNGState.from_key(1))
+        d_h = x_h.full().double()
+        (t2, _), _ = rdrive(
+            "(z) tt_from_dense, test_tpu_hardware.py's exact case",
+            lambda: la.tt_from_dense(d_h.float(), (3, 4, 2),
+                                     rt.RNGState.from_key(2)), {"K3": 3})
+        e1 = fro_rel(t2.full(), d_h)
+        s_h = la.tt_add(x_h, la.tt_scale(x_h, 2.0))
+        (r_h, _), _ = rdrive(
+            "(z) tt_round, test_tpu_hardware.py's add-then-round case",
+            lambda: la.tt_round(s_h, (3, 4, 2), rt.RNGState.from_key(3)),
+            {"K3": 4})
+        e2 = fro_rel(r_h.full(), 3 * d_h)
+        y_np = rank_one_sum(np.random.default_rng(8), (9, 10, 11), 8)
+        ty, _ = la.tt_from_dense(on_card(y_np.astype(np.float32)), 8,
+                                 rt.RNGState.from_key(12), power_iters=2)
+        ry, _ = la.tt_round(ty, 3, rt.RNGState.from_key(13), oversample=4)
+        got = np.linalg.norm(ry.full().double().cpu().numpy() - y_np)
+        base = np.linalg.norm(tt_svd_oracle(y_np, 3) - y_np)
+        check(e1 < TT_HW and e2 < TT_HW
+              and got < 3 * base + 5e-2 * np.linalg.norm(y_np),
+              f"(z) TT hardware case: {e1}, {e2}, {got} vs {base}")
+        y_np = rank_one_sum(np.random.default_rng(2), (12, 13, 14), 10)
+        (cc, ff, _), _ = rdrive(
+            "(z) tucker_from_dense, test_tpu_hardware.py's case",
+            lambda: la.tucker_from_dense(on_card(y_np.astype(np.float32)), 4,
+                                         rt.RNGState.from_key(2),
+                                         power_iters=2), {"K3": 3})
+        got_tk = np.linalg.norm(la.tucker_full(cc, ff).double().cpu().numpy()
+                                - y_np)
+        base_tk = np.linalg.norm(st_hosvd_oracle(y_np, 4) - y_np)
+        orth_h = max((u.T @ u - torch.eye(u.shape[1], device=dev)).abs()
+                     .max().item() for u in ff)
+        check(got_tk < 2 * base_tk + 5e-2 * np.linalg.norm(y_np)
+              and orth_h <= ORTH_HW,
+              f"(z) Tucker hardware case: {got_tk} vs {base_tk}, {orth_h}")
+        print(f"(z) test_tpu_hardware.py:798-870: exact recovery {e1:.3g} "
+              f"and 3x after add-then-round {e2:.3g} (< {TT_HW}); rounding "
+              f"error {got:.4g} < 3 x the float64 TT-SVD's {base:.4g} + "
+              f"5e-2 ||y||; Tucker {got_tk:.4g} < 2 x ST-HOSVD's "
+              f"{base_tk:.4g} + 5e-2 ||y||, max |U^T U - I| {orth_h:.3g} <= "
+              f"{ORTH_HW}")
+
+    for path in (path_w, path_x, path_y, path_z):
+        t0 = time.perf_counter()
+        path()
+        torch.cuda.empty_cache()
+        print(f"phase 10, {path.__name__}: {time.perf_counter() - t0:.1f} s "
+              "(host clock, checks and timings included)")
+
+
 def profile_main(rt, S, A, card):
     """One torch.profiler window over five main-path calls: K1's device
     time per call and the share of the window in which the card ran no
@@ -1606,7 +2396,7 @@ def profile_main(rt, S, A, card):
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0,
-                        help="seed of the data of paths (h) to (v)")
+                        help="seed of the data of paths (h) to (z)")
     cli = parser.parse_args()
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda.is_available() is False; "
@@ -2128,6 +2918,8 @@ def main():
     linalg_paths(rt, dev, drive, card, cli.seed)
     torch.cuda.empty_cache()
     solver_paths(rt, dev, drive, card, cli.seed)
+    torch.cuda.empty_cache()
+    tier45_paths(rt, dev, drive, card, cli.seed)
     # launches: K1 on the main path, K2 on its backward pass (a), K3 on the
     # staged route, whose fill the K3 entry's numbers time
     k3_ms, k3_seq_ms, k3_dev_ms = k3_first["boxmul"]

@@ -24,7 +24,8 @@ package imports torch, never jax.
 from .base import Layout, MajorAxis, Op, Side
 from .convert import (blocked_ell_from_jax, coo_from_jax, dist_from_jax,
                       ell_from_jax, skop_from_jax, sparse_skop_from_jax,
-                      state_from_jax, trig_skop_from_jax)
+                      state_from_jax, trig_skop_from_jax, tt_from_jax,
+                      ttmatrix_from_jax)
 from .dense import (DenseDist, DenseDistName, DenseSkOp, compute_next_state,
                     dist_to_layout, fill_dense, fill_dense_submat,
                     isometry_scale_factor, major_axis_length)
@@ -69,5 +70,6 @@ __all__ = [
     "flags", "get_flag", "set_flag",
     "dist_from_jax", "skop_from_jax", "state_from_jax",
     "sparse_skop_from_jax", "trig_skop_from_jax", "coo_from_jax",
-    "ell_from_jax", "blocked_ell_from_jax",
+    "ell_from_jax", "blocked_ell_from_jax", "tt_from_jax",
+    "ttmatrix_from_jax",
 ]

@@ -5,8 +5,9 @@ A dense sketch is fully determined by its distribution and its seed state,
 and a lazy sparse or SRHT one by its distribution and seed too, so these
 take the plain values the JAX package exposes: ``RNGState.to_dict()``, the
 dimensions, ``vec_nnz``, and the enum names (or values). Filled operators,
-an SRHT operator's cached signs and indices and sparse containers come
-across as their numpy arrays. Nothing here imports jax.
+an SRHT operator's cached signs and indices, sparse containers and the
+cores of TT tensors and TT-matrices come across as their numpy arrays.
+Nothing here imports jax.
 """
 
 from __future__ import annotations
@@ -151,3 +152,20 @@ def blocked_ell_from_jax(local_cols, vals, n_rows: int, n_cols: int, kb: int,
                       as_tensor(vals, torch.float32, device), int(n_rows),
                       int(n_cols), int(kb), int(bw), *ovf,
                       word_major=int(word_major))
+
+
+def tt_from_jax(cores, device=None):
+    """The port's TTTensor of a JAX TTTensor's cores (numpy arrays, each
+    (r_k, n_k, r_{k+1})), on ``device`` (the card by default)."""
+    from .linalg.tt import TTTensor
+    from .sparse_data.base import as_tensor
+    return TTTensor([as_tensor(np.asarray(c), device=device) for c in cores])
+
+
+def ttmatrix_from_jax(cores, device=None):
+    """The port's TTMatrix of a JAX TTMatrix's cores (numpy arrays, each
+    (R_k, n_out_k, n_in_k, R_{k+1})), on ``device`` (the card by
+    default)."""
+    from .linalg.tt import TTMatrix
+    from .sparse_data.base import as_tensor
+    return TTMatrix([as_tensor(np.asarray(c), device=device) for c in cores])

@@ -5,13 +5,19 @@ squares, and the tall-skinny ``cholqr`` they orthonormalize with; Nystrom
 and its PCG, the trace and diagonal estimators, leverage scores, the
 spectral tools, the randomized eigensolvers; the block-Krylov SVD, sketched
 GMRES, randomized Gram-Schmidt QR, RPCholesky, QRCP/ID/CUR, approximate
-matrix multiplication and random Fourier features."""
+matrix multiplication and random Fourier features; the one-pass and
+streaming SVD and Frequent Directions, Lanczos quadrature, spectral
+densities, block Kaczmarz and Gauss-Seidel, and the tensor-train and Tucker
+decompositions. The five ``distributed_*`` names of the JAX package's tier
+go with the distributed layer."""
 
 from .amm import amm, sample_lsq
+from .density import eig_count, kpm_density, spectral_density
 from .distributed import cholqr
 from .eigh import rand_eigh, rand_geigh
 from .embed import make_embedding
 from .features import random_fourier_features
+from .kaczmarz import block_gauss_seidel, block_kaczmarz
 from .krylov import krylov_rangefinder, rsvd_krylov
 from .leverage import exact_leverage_scores, leverage_scores
 from .lstsq import (cgls, ihs_lsq, min_norm_lsq, ridge_lsq,
@@ -20,15 +26,22 @@ from .nystrom import nystrom, nystrom_apply, nystrom_pcg
 from .qb import (adaptive_rangefinder, qb_decompose, qb_to_svd,
                  range_error_estimate, rangefinder)
 from .qrcp import column_id, cur, sketch_qrcp
+from .quadrature import lanczos_fn_apply, logdet, slq
 from .rgs import rgs_qr
 from .rpcholesky import rpcholesky, rpcholesky_pcg
 from .rsvd import rsvd, rsvd_adaptive
 from .sgmres import sgmres
 from .spectral import (extremal_eigs, power_method, required_power_iters,
                        sketched_eigs, spectral_norm)
+from .streaming import (FrequentDirections, StreamingSketch, fd_pass,
+                        single_pass_svd)
 from .tls import sketched_tls, tls_via_svd
 from .trace import (diag_hutchinson, exact_trace, hutchinson, hutchpp,
                     rademacher_probes, xdiag, xtrace)
+from .tt import (TTMatrix, TTStream, TTTensor, tt_add, tt_dot, tt_from_dense,
+                 tt_gaussian, tt_matrix_gaussian, tt_matvec, tt_norm,
+                 tt_round, tt_round_deterministic, tt_scale, tt_single_pass)
+from .tucker import tucker_from_dense, tucker_full
 
 __all__ = [
     # group 1
@@ -49,4 +62,14 @@ __all__ = [
     "krylov_rangefinder", "rsvd_krylov", "sgmres", "rgs_qr",
     "rpcholesky", "rpcholesky_pcg", "column_id", "cur", "sketch_qrcp",
     "amm", "sample_lsq", "random_fourier_features",
+    # group 4
+    "StreamingSketch", "FrequentDirections", "fd_pass", "single_pass_svd",
+    "slq", "logdet", "lanczos_fn_apply",
+    "kpm_density", "spectral_density", "eig_count",
+    "block_kaczmarz", "block_gauss_seidel",
+    # group 5
+    "TTTensor", "TTMatrix", "TTStream", "tt_from_dense", "tt_gaussian",
+    "tt_matrix_gaussian", "tt_add", "tt_dot", "tt_norm", "tt_scale",
+    "tt_round", "tt_round_deterministic", "tt_matvec", "tt_single_pass",
+    "tucker_from_dense", "tucker_full",
 ]

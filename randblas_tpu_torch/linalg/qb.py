@@ -45,10 +45,12 @@ def _device_of(a, device=None) -> torch.device:
 
 
 def _cholesky(g: torch.Tensor) -> torch.Tensor:
-    """The lower Cholesky factor of ``g``, NaN where the factorization fails
-    (as JAX returns it), with no host synchronisation."""
+    """The lower Cholesky factor of ``g`` (or of each matrix of a batch),
+    NaN where the factorization fails (as JAX returns it), with no host
+    synchronisation."""
     c, info = torch.linalg.cholesky_ex(g)
-    return torch.where(info == 0, c, torch.full_like(c, float("nan")))
+    return torch.where((info == 0)[..., None, None], c,
+                       torch.full_like(c, float("nan")))
 
 
 def _matmul(a, b, dtype):

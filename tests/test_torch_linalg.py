@@ -81,7 +81,7 @@ def _signs_aligned(t, j, axis):
 
 
 def test_linalg_exports_this_slice():
-    """Groups 1-3 of the JAX package's linalg tier: exactly 48 names, each
+    """Groups 1-5 of the JAX package's linalg tier: exactly 76 names, each
     one of ``randblas_tpu.linalg.__all__`` and each importable."""
     group1 = {
         "make_embedding", "cholqr", "rangefinder", "qb_decompose",
@@ -99,11 +99,29 @@ def test_linalg_exports_this_slice():
         "krylov_rangefinder", "rsvd_krylov", "sgmres", "rgs_qr",
         "rpcholesky", "rpcholesky_pcg", "sketch_qrcp", "column_id", "cur",
         "amm", "sample_lsq", "random_fourier_features"}
-    assert len(tla.__all__) == 48
-    assert set(tla.__all__) == group1 | group2 | group3
+    group4 = {
+        "StreamingSketch", "FrequentDirections", "fd_pass", "single_pass_svd",
+        "slq", "logdet", "lanczos_fn_apply", "kpm_density",
+        "spectral_density", "eig_count", "block_kaczmarz",
+        "block_gauss_seidel"}
+    group5 = {
+        "TTTensor", "TTMatrix", "TTStream", "tt_from_dense", "tt_gaussian",
+        "tt_matrix_gaussian", "tt_add", "tt_dot", "tt_norm", "tt_scale",
+        "tt_round", "tt_round_deterministic", "tt_matvec", "tt_single_pass",
+        "tucker_from_dense", "tucker_full"}
+    assert len(tla.__all__) == 76
+    assert set(tla.__all__) == group1 | group2 | group3 | group4 | group5
     assert set(tla.__all__) <= set(jla.__all__)
     assert all(callable(getattr(tla, name)) for name in tla.__all__)
     assert set(rb.__all__) <= set(rt.__all__)
+
+
+def test_only_the_distributed_names_are_left():
+    """What the port's linalg still lacks is the distributed layer's five
+    names and nothing else."""
+    assert set(jla.__all__) - set(tla.__all__) == {
+        "distributed_fd", "distributed_krylov_rangefinder", "distributed_qb",
+        "distributed_rangefinder", "distributed_rsvd"}
 
 
 @pytest.mark.parametrize("family,kind", [("saso", rt.SparseSkOp),
