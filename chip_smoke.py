@@ -143,6 +143,25 @@ jax):
   (8 each; their sketches against each other), and ``tt_matvec`` of a
   rank-8 TT-matrix against the mode-by-mode contraction.
 
+Phase 11 drives the distributed layer (``randblas_tpu_torch.parallel``),
+numbered as the JAX package's ``dryrun_multichip``. Through a real NCCL
+process group of one rank (``initialize_multihost`` on a localhost port)
+and a 1 x 1 ``make_sketch_mesh``, with DTensor inputs: (M1)
+``distributed_sketch`` at the main shape (K1 1, bitwise
+``sketch_general``'s) and its backward pass (K1 1, K2 1), (M8)
+``distributed_rsvd`` and (M9) ``distributed_krylov_rangefinder`` on (i)'s
+planted matrix (K3 1 each), (M13) ``distributed_fd`` at FD's 65536 x 1024,
+ell = 256, and (M14) ``ihs_lsq(mesh=)`` at (j)'s shape (K1 1) against the
+unsharded run. NCCL takes one rank a card, so 1 x 4, 4 x 1 and 2 x 2 meshes
+are emulated: each shard body runs on the card in turn at full width and
+the partials are added in rank order, against the single-device sketch:
+(M1) left at the main shape (K1 a shard; each shard's tile from K3 bitwise
+the slice of one full K3 fill), (M2) right at config 2 (K1 a shard), (M3)
+SASO at config 3 (K4 a shard), (M4) the column layout (K1 a shard), (M5)
+sparse data at config 4 (K3 a shard), (M6) pad-and-shard at d = 1000,
+m = 65000, n = 4093, (M7) SRHT columns (no kernel), (M13) FD over four
+shards merged.
+
 For K1 and K2 it also prints the launch plan
 of the main path and of (b) (tiles, thread-block cluster, grid, contraction
 splits, how many times the operator is generated, and the card's
@@ -293,6 +312,15 @@ TT_STREAM_TOL = 1e-5  # (z) TTStream's sketches Psi_k vs one pass's, / max
 TT_MATVEC_TOL = 1e-4  # (z) tt_matvec vs the mode-by-mode contraction
 TT_HW = 1e-2          # (z) test_tpu_hardware.py:798-840: exact recovery
 ORTH_HW = 2e-2        # (z) test_tpu_hardware.py:843-870: U^T U - I
+# phase 11's meshes, emulated on one card, and its pad-and-shard shape (d,
+# m, n); the bounds of (M9) and (M14)
+MESHES11 = ((1, 4), (4, 1), (2, 2))
+PAD11 = (1000, 65000, 4093)
+KRYLOV11_SLACK = 1.05  # (M9) ||A - Q Q^T A||_F / the planted rank-256 tail:
+                       # depth 2 captures the top 256 to (3e-2)^5
+KRYLOV11_ORTH = 1e-5   # (M9) max |Q^T Q - I| (float32 Grams, two passes)
+IHS11_TOL = 1e-4       # (M14) the mesh's x vs the unsharded run's (the
+                       # dryrun's rtol)
 PEAK_BF16 = 989e12     # H100 SXM dense bf16 FLOP/s at 700 W (data sheet)
 PEAK_F32 = 67e12       # H100 SXM float32 FLOP/s outside the tensor cores
 PEAK_BYTES = 3.35e12   # H100 SXM HBM3 bytes/s
@@ -2356,6 +2384,361 @@ def tier45_paths(rt, dev, drive, card, seed):
               "(host clock, checks and timings included)")
 
 
+def distributed_paths(rt, dev, drive, card, seed):
+    """Phase 11: the distributed layer (randblas_tpu_torch.parallel) on the
+    card, paths (M1)-(M14) numbered as the JAX package's dryrun_multichip.
+    Through a real NCCL process group of one rank and a 1 x 1 mesh, the
+    public entry points with DTensor inputs: (M1) distributed_sketch at the
+    main shape and its backward pass, (M8) distributed_rsvd, (M9)
+    distributed_krylov_rangefinder, (M13) distributed_fd and (M14)
+    ihs_lsq(mesh=). NCCL takes one rank a card, so the 1 x 4, 4 x 1 and
+    2 x 2 meshes are emulated: every shard body runs on the card in turn,
+    at full width, and the partials are added in rank order ((M1)-(M7),
+    (M13) in four shards). Each path: its launch counts, its error against
+    its bound, CUDA-event times (median of 5; one run for FD) beside the
+    single-device call's, and one profiled call. The data are made on the
+    card from ``seed``."""
+    import socket
+
+    import torch.distributed as dist
+    from torch.distributed.tensor import (DTensor, Replicate, Shard,
+                                          distribute_tensor)
+    from randblas_tpu_torch import linalg as la
+    from randblas_tpu_torch import parallel as par
+    from randblas_tpu_torch.linalg import distributed as ldist
+    from randblas_tpu_torch.ops import fused_sketch as fs
+    from randblas_tpu_torch.parallel import distributed as pd
+
+    t_phase = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device=dev).manual_seed(seed + 40)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device=dev)
+
+    def timed(label, fn, single=None, single_name="", reps=5):
+        ms = time_ms(fn, reps=reps)
+        one = None if single is None else time_ms(single, reps=reps)
+        txt = "" if single is None else f"; {single_name} {one:.3f} ms"
+        print(f"time {label}: {ms:.3f} ms{txt} [{card}]")
+
+    def emulate(label, run, expect, want, tol):
+        """``run(shape)``, every shard of a mesh in turn, on each mesh of
+        MESHES11, against ``want``; ``expect(shape)``: its launches."""
+        for shape in MESHES11:
+            name = f"({label}) {shape[0]}x{shape[1]} mesh, emulated"
+            out, _ = drive(name, lambda: run(shape), expect(shape))
+            err = rel_err(out, want)
+            check(out.shape == want.shape and err <= tol,
+                  f"{name}: {tuple(out.shape)}, normalised {err}")
+            ms = time_ms(lambda: run(shape))
+            print(f"{name}: normalised {err:.3g} <= {tol} against the "
+                  f"single-device call; {ms:.3f} ms [{card}]")
+        breakdown(f"({label}) 2x2 mesh, emulated", lambda: run((2, 2)), card)
+
+    def shards(shape):
+        return {"K1": shape[0] * shape[1]}
+
+    def summed(body, extents, total, block, dim=0):
+        """run(shape): each model row's partials added over 'data' in rank
+        order, the rows stacked along ``dim``; ``block(off, ext)``: the
+        shard's block of the data along the contraction."""
+        def run(shape):
+            m_per = extents(shape)[1]
+            out = []
+            for mi in range(shape[0]):
+                acc = None
+                for di in range(shape[1]):
+                    off, ext = pd.shard_span(total, m_per, di)
+                    part = body(block(off, ext), (mi, di), shape)
+                    acc = part if acc is None else acc + part
+                out.append(acc)
+            return torch.cat(out, dim=dim)
+        return run
+
+    def tiled(S_c, A_c):
+        """run(shape) of the column layout: each shard's output block."""
+        n = A_c.shape[1]
+
+        def run(shape):
+            n_per = pd.cols_extents(S_c, n, shape)[1]
+            return torch.cat([torch.cat([
+                pd.cols_shard(S_c, A_c[:, off:off + ext], (mi, di), shape, n)
+                for di in range(shape[1])
+                for off, ext in [pd.shard_span(n, n_per, di)]], dim=1)
+                for mi in range(shape[0])])
+        return run
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    par.initialize_multihost(f"localhost:{port}", num_processes=1,
+                             process_id=0)
+    try:
+        mesh = par.make_sketch_mesh(1, 1)
+        backend = dist.get_backend(mesh.get_group("data"))
+        check("nccl" in str(backend), f"the mesh's group is {backend}")
+        print(f"phase 11: the distributed layer, paths (M1)-(M14); process "
+              f"group {backend}, world size {dist.get_world_size()}, mesh "
+              f"{tuple(mesh.mesh.shape)} on {mesh.device_type} [{card}]")
+        rows_data = [Replicate(), Shard(0)]
+
+        # -- (M1) distributed_sketch at the main shape -------------------
+        S = rt.DenseSkOp(rt.DenseDist(D, M), rt.RNGState.from_key(seed + 41))
+        A = randn(M, N)
+        A_dt = distribute_tensor(A, mesh, rows_data)
+        B, _ = drive("(M1) distributed_sketch, 1x1 NCCL mesh",
+                     lambda: par.distributed_sketch(S, A_dt, mesh),
+                     {"K1": 1})
+        check(isinstance(B, DTensor) and tuple(B.placements)
+              == (Shard(0), Replicate()) and B.shape == (D, N),
+              f"(M1) {type(B).__name__} {tuple(B.shape)}")
+        B1 = rt.sketch_general(S, A)
+        torch.cuda.synchronize()
+        check(torch.equal(B.to_local(), B1),
+              f"(M1) the 1x1 mesh's K1 call is sketch_general's, but "
+              f"differs by {rel_err(B.to_local(), B1)}")
+        print("(M1) 1x1 NCCL mesh against sketch_general: bitwise (the "
+              "same K1 call)")
+        a_leaf = distribute_tensor(A, mesh, rows_data).requires_grad_(True)
+        G = randn(D, N)
+
+        def backward():
+            a_leaf.grad = None
+            par.distributed_sketch(S, a_leaf, mesh).to_local().backward(G)
+            return a_leaf.grad
+
+        g, _ = drive("(M1) distributed_sketch forward + backward, 1x1 NCCL "
+                     "mesh", backward, {"K1": 1, "K2": 1})
+        a1 = A.clone().requires_grad_(True)
+        rt.sketch_general(S, a1).backward(G)
+        g_err = rel_err(g.to_local(), a1.grad)
+        check(g_err <= K1_REL_TOL, f"(M1) gradient {g_err}")
+        print(f"(M1) the gradient (K2) against sketch_general's: normalised "
+              f"{g_err:.3g} <= {K1_REL_TOL}")
+        timed("(M1) distributed_sketch, 1x1 NCCL mesh",
+              lambda: par.distributed_sketch(S, A_dt, mesh),
+              lambda: rt.sketch_general(S, A), "sketch_general")
+        timed("(M1) forward + backward, 1x1 NCCL mesh", backward,
+              lambda: rt.sketch_general(S, a1).backward(G),
+              "sketch_general's", reps=3)
+        breakdown("(M1) distributed_sketch, 1x1 NCCL mesh",
+                  lambda: par.distributed_sketch(S, A_dt, mesh), card)
+        del a_leaf, a1, g, G, B
+
+        # (M1) emulated: K1 a shard; each tile from K3 bitwise the slice
+        # of one full K3 fill
+        full = fs.fill_block(S, D, M, device=dev, transform="boxmul")
+        for shape in MESHES11:
+            d_per, m_per = pd.left_extents(S, shape)
+            for mi in range(shape[0]):
+                for di in range(shape[1]):
+                    ro, rows = pd.shard_span(D, d_per, mi)
+                    co, cols = pd.shard_span(M, m_per, di)
+                    tile = fs.fill_block(S, rows, cols, ro, co, device=dev,
+                                         transform="boxmul")
+                    check(torch.equal(tile, full[ro:ro + rows,
+                                                 co:co + cols]),
+                          f"(M1) {shape} tile ({mi}, {di}) is not the slice "
+                          "of the full K3 fill")
+        labels = ", ".join(f"{a}x{b}" for a, b in MESHES11)
+        print(f"(M1) each shard tile of the {labels} meshes from K3 is "
+              "bitwise the slice of one full K3 fill")
+        del full
+        emulate("M1", summed(lambda a, c, sh: pd.left_shard(S, a, c, sh),
+                             lambda sh: pd.left_extents(S, sh), M,
+                             lambda off, ext: A[off:off + ext]),
+                shards, B1, K1_REL_TOL)
+
+        # (M2) right sketch at run_all.py config 2: K1 on each transposed
+        # tile
+        S2 = rt.DenseSkOp(rt.DenseDist(C2, D2, rt.DenseDistName.Uniform),
+                          rt.RNGState.from_key(seed + 42))
+        A2 = randn(R2, C2)
+        emulate("M2", summed(lambda a, c, sh: pd.right_shard(S2, a, c, sh),
+                             lambda sh: pd.right_extents(S2, sh), C2,
+                             lambda off, ext: A2[:, off:off + ext], dim=1),
+                shards, rt.sketch_general(S2, A2, side="right"), K1_REL_TOL)
+        timed("(M2) the single-device right sketch (K1)",
+              lambda: rt.sketch_general(S2, A2, side="right"))
+        del A2
+
+        # (M3) the SASO sketch at config 3: K4 a shard
+        S3 = rt.SparseSkOp(rt.SparseDist(D3, M3, vec_nnz=K3_NNZ),
+                           rt.RNGState.from_key(seed + 43)).filled(dev)
+        A3 = randn(M3, N3)
+        emulate("M3", summed(lambda a, c, sh: pd.sparse_shard(S3, a, c, sh),
+                             lambda sh: pd.sparse_extents(S3, sh), M3,
+                             lambda off, ext: A3[off:off + ext]),
+                lambda sh: {"K4": sh[0] * sh[1]}, rt.sketch_general(S3, A3),
+                K4_REL_TOL)
+        timed("(M3) the single-device SASO sketch (K4)",
+              lambda: rt.sketch_general(S3, A3))
+        del A3
+
+        # (M4) the column layout at the main shape: K1 a shard, no sum;
+        # each shard generates the whole operator
+        emulate("M4", tiled(S, A), shards, B1, K1_REL_TOL)
+        timed("(M1), (M4) the single-device sketch (K1)",
+              lambda: rt.sketch_general(S, A))
+
+        # (M5) sparse data at config 4's COO shape: K3 a shard
+        rng = np.random.default_rng(seed + 44)
+        coo = rt.COOMatrix.from_arrays(
+            R4, C4, rng.integers(0, R4, NNZ4), rng.integers(0, C4, NNZ4),
+            rng.normal(size=NNZ4).astype(np.float32), device=dev)
+        S5 = rt.DenseSkOp(rt.DenseDist(D4, R4),
+                          rt.RNGState.from_key(seed + 45))
+        emulate("M5", summed(lambda _, c, sh: pd.sparse_data_shard(
+                    S5, coo, c, sh), lambda sh: pd.left_extents(S5, sh), R4,
+                    lambda off, ext: None),
+                lambda sh: {"K3": sh[0] * sh[1]}, rt.sketch_sparse(S5, coo),
+                COO_REL_TOL)
+        timed("(M5) the single-device COO sketch (K3)",
+              lambda: rt.sketch_sparse(S5, coo))
+        del coo
+
+        # (M6) pad-and-shard: on 1x4 the counter-aligned shards of 16252
+        # rows clip at the parent's 65000
+        d6, m6, n6 = PAD11
+        S6 = rt.DenseSkOp(rt.DenseDist(d6, m6),
+                          rt.RNGState.from_key(seed + 46))
+        A6 = randn(m6, n6)
+        emulate("M6", summed(lambda a, c, sh: pd.left_shard(S6, a, c, sh),
+                             lambda sh: pd.left_extents(S6, sh), m6,
+                             lambda off, ext: A6[off:off + ext]),
+                shards, rt.sketch_general(S6, A6), K1_REL_TOL)
+        timed("(M6) the single-device sketch (K1; A's row stride of 4093 "
+              "floats is no TMA stride)", lambda: rt.sketch_general(S6, A6))
+        del A6
+
+        # (M7) SRHT over the column layout at (h)'s shape: no kernel
+        S7 = rt.TrigSkOp(rt.TrigDist(D, M), rt.RNGState.from_key(seed + 47))
+        emulate("M7", tiled(S7, A), lambda sh: {}, rt.sketch_general(S7, A),
+                SRHT_REL_TOL)
+        timed("(M7) the single-device SRHT sketch",
+              lambda: rt.sketch_general(S7, A))
+        del A, A_dt, B1
+
+        # -- (M8) distributed_rsvd on (i)'s planted matrix ---------------
+        m8, n8, rank = PHASE8["i"]
+        A8, sig = planted(randn, m8, n8, rank)
+        A8_dt = distribute_tensor(A8, mesh, rows_data)
+        st8 = rt.RNGState.from_key(seed + 48)
+        (u, s8, vt), _ = drive("(M8) distributed_rsvd, 1x1 NCCL mesh",
+                               lambda: la.distributed_rsvd(A8_dt, rank, st8,
+                                                           mesh), {"K3": 1})
+        check(isinstance(u, DTensor) and u.shape == (m8, rank)
+              and vt.shape == (rank, n8), "(M8) factors")
+        e8 = ((s8 - sig[:rank]).abs().max() / sig[0]).item()
+        e_ref = ((la.rsvd(A8, rank, st8)[1] - sig[:rank]).abs().max()
+                 / sig[0]).item()
+        check(e8 <= RSVD_TOL, f"(M8) {e8}")
+        print(f"(M8) distributed_rsvd: top-{rank} vs the planted singular "
+              f"values {e8:.3g} <= {RSVD_TOL} (linalg.rsvd on the same "
+              f"matrix {e_ref:.3g}; max abs err / s_1)")
+        timed("(M8) distributed_rsvd, 1x1 NCCL mesh",
+              lambda: la.distributed_rsvd(A8_dt, rank, st8, mesh),
+              lambda: la.rsvd(A8, rank, st8), "linalg.rsvd")
+        breakdown("(M8) distributed_rsvd",
+                  lambda: la.distributed_rsvd(A8_dt, rank, st8, mesh), card)
+        del u, vt
+
+        # -- (M9) distributed_krylov_rangefinder on (s)'s matrix ---------
+        st9 = rt.RNGState.from_key(seed + 49)
+        Q9, _ = drive(f"(M9) distributed_krylov_rangefinder, block {rank}, "
+                      "depth 2, 1x1 NCCL mesh",
+                      lambda: la.distributed_krylov_rangefinder(
+                          A8_dt, rank, st9, mesh), {"K3": 1})
+        q9 = Q9.to_local()
+        tail = (sig[rank:].double() ** 2).sum().sqrt().item()
+        res9 = (A8 - q9 @ (q9.T @ A8)).double().norm().item()
+        orth9 = (q9.T @ q9 - torch.eye(q9.shape[1], device=dev)).abs().max(
+            ).item()
+        check(res9 <= KRYLOV11_SLACK * tail and orth9 <= KRYLOV11_ORTH,
+              f"(M9) residual {res9} (tail {tail}), orthogonality {orth9}")
+        print(f"(M9) basis width {q9.shape[1]}, ||A - Q Q^T A||_F {res9:.5g} "
+              f"<= {KRYLOV11_SLACK} x the rank-{rank} tail {tail:.5g}, max "
+              f"|Q^T Q - I| {orth9:.3g} <= {KRYLOV11_ORTH}")
+        timed("(M9) distributed_krylov_rangefinder, 1x1 NCCL mesh",
+              lambda: la.distributed_krylov_rangefinder(A8_dt, rank, st9,
+                                                        mesh),
+              lambda: la.krylov_rangefinder(A8, rank, st9),
+              "linalg.krylov_rangefinder")
+        breakdown("(M9) distributed_krylov_rangefinder",
+                  lambda: la.distributed_krylov_rangefinder(A8_dt, rank, st9,
+                                                            mesh), card)
+        del A8, A8_dt, Q9, q9
+
+        # -- (M13) Frequent Directions over four emulated 'data' shards --
+        m13, n13, ell, _ = PHASE10["fd"]
+        A13 = randn(m13, n13)
+        per = pd._shard_extent(m13, 4)
+
+        def fd_four():
+            parts = [ldist.fd_shard(A13[i * per:(i + 1) * per], ell, per)
+                     for i in range(4)]
+            return ldist.fd_merge(torch.cat([b for b, _ in parts]),
+                                  torch.stack([w for _, w in parts]), n13,
+                                  ell, torch.float32)
+
+        g13 = A13.double().T @ A13.double()
+        g_norm = torch.linalg.matrix_norm(g13, 2).item()
+        fro2 = (A13.double() ** 2).sum().item()
+        for label, fn in (("4 emulated 'data' shards", fd_four),
+                          ("the 1x1 NCCL mesh",
+                           lambda: la.distributed_fd(A13, ell, mesh))):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fd, _ = drive(f"(M13) distributed_fd, {label}", fn, {})
+            fd_ms = (time.perf_counter() - t0) * 1e3
+            b13 = fd.sketch().double()
+            err13 = torch.linalg.matrix_norm(g13 - b13.T @ b13, 2).item()
+            mass = float(fd.shrink_mass)
+            check(err13 <= mass * 1.01 + 1e-3 * g_norm
+                  and mass <= fro2 / ell * 1.01,
+                  f"(M13) {label}: ||G - B^T B|| {err13}, mass {mass}")
+            print(f"(M13) {label}: ||A^T A - B^T B||_2 {err13:.6g} <= the "
+                  f"certificate {mass:.6g} (x 1.01 + 1e-3 ||A^T A||_2), "
+                  f"which is <= ||A||_F^2 / ell = {fro2 / ell:.6g}; "
+                  f"{fd_ms:.1f} ms, one run (host clock) [{card}]")
+        del A13, g13, fd, b13
+
+        # -- (M14) ihs_lsq(mesh=) at (j)'s shape, 'gaussian' -------------
+        m14, n14, d14 = PHASE8["j"]
+        A14 = randn(m14, n14) * torch.logspace(0, -3, n14, device=dev)
+        b14 = A14 @ randn(n14) + 1e-3 * randn(m14)
+        A14_dt = distribute_tensor(A14, mesh, rows_data)
+        b14_dt = distribute_tensor(b14, mesh, rows_data)
+        st14 = rt.RNGState.from_key(seed + 50)
+
+        def ihs_mesh():
+            return la.ihs_lsq(A14_dt, b14_dt, st14, d=d14,
+                              operator="gaussian", mesh=mesh)
+
+        (x14, _), _ = drive("(M14) ihs_lsq(mesh=), 'gaussian', 1x1 NCCL "
+                            "mesh", ihs_mesh, {"K1": 1})
+        x_ref, _ = la.ihs_lsq(A14, b14, st14, d=d14, operator="gaussian")
+        x64 = torch.linalg.lstsq(A14.double(),
+                                 b14.double()[:, None]).solution[:, 0]
+        e14 = rel_err(x14, x_ref)
+        check(e14 <= IHS11_TOL, f"(M14) against the unsharded run: {e14}")
+        print(f"(M14) ihs_lsq on the mesh against the unsharded run: "
+              f"normalised {e14:.3g} <= {IHS11_TOL} (bitwise "
+              f"{torch.equal(x14, x_ref)}); ||x - x64|| / ||x64|| "
+              f"{((x14.double() - x64).norm() / x64.norm()).item():.3g}")
+        timed("(M14) ihs_lsq(mesh=), 1x1 NCCL mesh", ihs_mesh,
+              lambda: la.ihs_lsq(A14, b14, st14, d=d14, operator="gaussian"),
+              "ihs_lsq")
+        breakdown("(M14) ihs_lsq(mesh=)", ihs_mesh, card)
+        del A14, b14, A14_dt, b14_dt
+    finally:
+        dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    print(f"phase 11: {time.perf_counter() - t_phase:.1f} s (host clock, "
+          "checks and timings included)")
+
+
 def profile_main(rt, S, A, card):
     """One torch.profiler window over five main-path calls: K1's device
     time per call and the share of the window in which the card ran no
@@ -2920,6 +3303,8 @@ def main():
     solver_paths(rt, dev, drive, card, cli.seed)
     torch.cuda.empty_cache()
     tier45_paths(rt, dev, drive, card, cli.seed)
+    torch.cuda.empty_cache()
+    distributed_paths(rt, dev, drive, card, cli.seed)
     # launches: K1 on the main path, K2 on its backward pass (a), K3 on the
     # staged route, whose fill the K3 entry's numbers time
     k3_ms, k3_seq_ms, k3_dev_ms = k3_first["boxmul"]

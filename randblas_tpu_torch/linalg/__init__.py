@@ -8,12 +8,15 @@ GMRES, randomized Gram-Schmidt QR, RPCholesky, QRCP/ID/CUR, approximate
 matrix multiplication and random Fourier features; the one-pass and
 streaming SVD and Frequent Directions, Lanczos quadrature, spectral
 densities, block Kaczmarz and Gauss-Seidel, and the tensor-train and Tucker
-decompositions. The five ``distributed_*`` names of the JAX package's tier
-go with the distributed layer."""
+decompositions; and the distributed rangefinder, QB, randomized SVD, block
+Krylov rangefinder and Frequent Directions on row-sharded data
+(``randblas_tpu_torch.parallel``'s meshes)."""
 
 from .amm import amm, sample_lsq
 from .density import eig_count, kpm_density, spectral_density
-from .distributed import cholqr
+from .distributed import (cholqr, distributed_fd,
+                          distributed_krylov_rangefinder, distributed_qb,
+                          distributed_rangefinder, distributed_rsvd)
 from .eigh import rand_eigh, rand_geigh
 from .embed import make_embedding
 from .features import random_fourier_features
@@ -72,4 +75,7 @@ __all__ = [
     "tt_matrix_gaussian", "tt_add", "tt_dot", "tt_norm", "tt_scale",
     "tt_round", "tt_round_deterministic", "tt_matvec", "tt_single_pass",
     "tucker_from_dense", "tucker_full",
+    # the distributed layer's
+    "distributed_fd", "distributed_krylov_rangefinder", "distributed_qb",
+    "distributed_rangefinder", "distributed_rsvd",
 ]

@@ -11,9 +11,16 @@ randblas_tpu/linalg/lstsq.py).
 The sketch goes through ``sketch_general`` / ``sketch_sparse``, so on the
 card a Gaussian embedding runs K1 and a SASO one the Fisher–Yates fill and
 K4. The iterations are Python loops on the host, one convergence test (a
-device sync) per step, with the JAX package's stopping rules. The ``mesh``
-argument of the JAX package (the sketch sharded over devices) needs the
-distributed layer, which the port does not have yet.
+device sync) per step, with the JAX package's stopping rules.
+
+``mesh=`` (a ('model', 'data') DeviceMesh of ``randblas_tpu_torch.parallel``)
+shards A's rows over 'data': the sketch runs through the distributed layer
+('gaussian' through ``distributed_sketch``, 'saso' through
+``distributed_sparse_sketch``, sparse data through
+``distributed_sketch_sparse_data``) and is gathered, as it is small, and
+the iterations run on each rank's rows of a dense A (and of b), with an
+all-reduce over 'data' of every product that contracts over the rows.
+Sparse data stays replicated for the iterations.
 """
 
 from __future__ import annotations
@@ -30,11 +37,41 @@ from .embed import make_embedding
 from .qb import _apply, _apply_t, _is_sparse, _solve_upper
 
 
-def _no_mesh(mesh):
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh=: the distributed layer is not ported to randblas_tpu_torch "
-            "yet (ROADMAP.md Queue 1 item 12)")
+class _Rows:
+    """The data a solver iterates on: this rank's rows of a dense A and of
+    b on a mesh, with the 'data' group that sums a product over the rows;
+    all of A and b (gathered where they are DTensors) and no group
+    otherwise."""
+
+    def __init__(self, a, b, mesh):
+        from ..parallel.distributed import (_mesh, _shard_extent, gathered,
+                                            local_block)
+        self.group = None
+        if mesh is None or _is_sparse(a):
+            self.a, self.b = gathered(a), gathered(b)
+            return
+        shape, coord = _mesh(mesh)
+        per = _shard_extent(a.shape[0], shape[1])
+        self.a = local_block(a, mesh, 0, per, coord[1])
+        self.b = local_block(b, mesh, 0, per, coord[1])
+        self.group = mesh.get_group("data")
+
+    def reduce(self, t: torch.Tensor) -> torch.Tensor:
+        """The sum of ``t`` over the row shards."""
+        from ..parallel.distributed import _all_reduce
+        return _all_reduce(t, self.group)
+
+    def apply(self, x):
+        """This rank's rows of A @ x."""
+        return _apply(self.a, x)
+
+    def apply_t(self, r):
+        """A^T @ r for r this rank's rows of an m-vector."""
+        return self.reduce(_apply_t(self.a, r))
+
+    def sumsq(self, q):
+        """Column sums of squares of an m-sized q held by rows."""
+        return self.reduce((q * q).sum(dim=0))
 
 
 def _solvers(r):
@@ -74,6 +111,13 @@ def cgls(matvec: Callable, rmatvec: Callable, b: torch.Tensor, n: int, *,
     Returns ``(x, iterations, gamma)``: the best iterate per column, the
     iteration count and the best squared normal residual per column.
     """
+    return _cgls(matvec, rmatvec, b, n, x0=x0, tol=tol, maxiter=maxiter,
+                 sumsq=lambda q: (q * q).sum(dim=0))
+
+
+def _cgls(matvec, rmatvec, b, n, *, x0, tol, maxiter, sumsq):
+    """``cgls`` with the column sums of squares of matvec's m-sized
+    results taken by ``sumsq`` (on a mesh each rank holds their rows)."""
     vec = b.dim() == 1
     bb = b[:, None] if vec else b
     if tol is None:
@@ -92,7 +136,7 @@ def cgls(matvec: Callable, rmatvec: Callable, b: torch.Tensor, n: int, *,
     p, x_best, gamma_best, k = s, x, gamma, 0
     while _keep_going(gamma, thresh, gamma_best, k, maxiter):
         q = matvec(p)
-        alpha = _ratio(gamma, (q * q).sum(dim=0))
+        alpha = _ratio(gamma, sumsq(q))
         x = x + alpha * p
         r = r - alpha * q
         s = rmatvec(r)
@@ -140,8 +184,11 @@ def _pcg(op: Callable, bb: torch.Tensor, *, pinv: Optional[Callable] = None,
 def _sketch_pair(a, b, d: int, state: RNGState, operator: str,
                  vec_nnz: int, dtype, mesh=None):
     """(S A, S b, next_state) with one operator for A and b; b = None skips
-    the right-hand side's sketch (sb = None)."""
-    _no_mesh(mesh)
+    the right-hand side's sketch (sb = None). With ``mesh``, the sketch
+    runs distributed (``_sketch_pair_distributed``)."""
+    if mesh is not None:
+        return _sketch_pair_distributed(a, b, d, state, operator, vec_nnz,
+                                        dtype, mesh)
     m = a.shape[0]
     if dtype is None and operator != "saso":
         dtype = a.dtype if not _is_sparse(a) else (
@@ -167,6 +214,42 @@ def _sketch_pair(a, b, d: int, state: RNGState, operator: str,
     else:
         sa = sketch_general(S, a.to(dtype) if dtype is not None else a)
         sb = None if bb is None else sketch_general(S, bb.to(sa.dtype))
+    return sa, None if sb is None else sb.to(sa.dtype), S.next_state
+
+
+def _sketch_pair_distributed(a, b, d: int, state: RNGState, operator: str,
+                             vec_nnz: int, dtype, mesh):
+    """Mesh-sharded ``_sketch_pair``: A's rows over 'data', the sketches
+    gathered (each is d x n)."""
+    from ..parallel.distributed import (distributed_sketch,
+                                        distributed_sketch_sparse_data,
+                                        distributed_sparse_sketch, gathered)
+    require(operator in ("saso", "gaussian"),
+            "mesh-distributed sketching supports the 'saso' and "
+            "'gaussian' families (SRHT is column-sharded only; see "
+            "parallel/distributed.py)")
+    m = a.shape[0]
+    bb = None if b is None else (b[:, None] if b.dim() == 1 else b)
+    if _is_sparse(a):
+        require(operator == "gaussian",
+                "sparse data on a mesh rides the dense-operator "
+                "distributed lsksp3 (use operator='gaussian')")
+        S = make_embedding("gaussian", d, m, state,
+                           dtype=dtype or (bb.dtype if bb is not None
+                                           else torch.float32))
+        sa = gathered(distributed_sketch_sparse_data(S, a, mesh))
+        sb = None if bb is None else gathered(
+            distributed_sketch(S, bb.to(sa.dtype), mesh))
+        return sa, sb, S.next_state
+    if dtype is None and operator != "saso":
+        dtype = a.dtype
+    S = make_embedding(operator, d, m, state, vec_nnz=vec_nnz,
+                       dtype=dtype or torch.float32)
+    sketch = (distributed_sparse_sketch if operator == "saso"
+              else distributed_sketch)
+    adt = a.to(dtype) if dtype is not None else a
+    sa = gathered(sketch(S, adt, mesh))
+    sb = None if bb is None else gathered(sketch(S, bb.to(sa.dtype), mesh))
     return sa, None if sb is None else sb.to(sa.dtype), S.next_state
 
 
@@ -221,10 +304,12 @@ def sketch_and_precondition(a, b, state: RNGState, *, d: Optional[int] = None,
         r = torch.linalg.qr(sa, mode="r")[1]
         y0 = None
     solve_r, solve_rt = _solvers(r)
-    bb = b if b.dim() > 1 else b[:, None]
-    y, iters, _ = cgls(lambda v: _apply(a, solve_r(v)),
-                       lambda rr: solve_rt(_apply_t(a, rr)),
-                       bb.to(sa.dtype), n, x0=y0, tol=tol, maxiter=maxiter)
+    rows = _Rows(a, b, mesh)
+    bb = rows.b if b.dim() > 1 else rows.b[:, None]
+    y, iters, _ = _cgls(lambda v: rows.apply(solve_r(v)),
+                        lambda rr: solve_rt(rows.apply_t(rr)),
+                        bb.to(sa.dtype), n, x0=y0, tol=tol, maxiter=maxiter,
+                        sumsq=rows.sumsq)
     x = solve_r(y)
     return (x[:, 0] if b.dim() == 1 else x), iters, nxt
 
@@ -310,22 +395,28 @@ def ridge_lsq(a, b, mu: float, state: RNGState, *,
     eye = torch.eye(n, dtype=dt, device=sa.device)
     r = torch.linalg.qr(torch.cat([sa, root_mu * eye]), mode="r")[1]
     solve_r, solve_rt = _solvers(r)
-    bb = (b[:, None] if b.dim() == 1 else b).to(dt)
+    rows = _Rows(a, b, mesh)
+    bb = (rows.b[:, None] if b.dim() == 1 else rows.b).to(dt)
+    m_loc = bb.shape[0]
 
-    # the augmented residual is the data block (m rows, through A) and the
-    # regularization block (n rows, sqrt(mu) x): A is never stacked
+    # the augmented residual is the data block (A's rows) and the
+    # regularization block (n rows, sqrt(mu) x, on every rank): A is never
+    # stacked
     def matvec(y):
         x = solve_r(y)
-        return torch.cat([_apply(a, x), root_mu * x])
+        return torch.cat([rows.apply(x), root_mu * x])
 
     def rmatvec(rr):
-        return solve_rt(_apply_t(a, rr[:m]) + root_mu * rr[m:])
+        return solve_rt(rows.apply_t(rr[:m_loc]) + root_mu * rr[m_loc:])
+
+    def sumsq(q):
+        return rows.sumsq(q[:m_loc]) + (q[m_loc:] * q[m_loc:]).sum(dim=0)
 
     b_aug = torch.cat([bb, bb.new_zeros((n, bb.shape[1]))])
     # the sketched ridge solution solves (R^T R) x = (SA)^T Sb
     y0 = solve_rt(sa.T @ sb) if warm_start else None
-    y, iters, _ = cgls(matvec, rmatvec, b_aug, n, x0=y0, tol=tol,
-                       maxiter=maxiter)
+    y, iters, _ = _cgls(matvec, rmatvec, b_aug, n, x0=y0, tol=tol,
+                        maxiter=maxiter, sumsq=sumsq)
     x = solve_r(y)
     return (x[:, 0] if b.dim() == 1 else x), iters, nxt
 
@@ -368,12 +459,15 @@ def ihs_lsq(a, b, state: RNGState, *, d: Optional[int] = None,
     r = torch.linalg.qr(c * sa, mode="r")[1]
     xi = n / d
     alpha, beta = (1.0 - xi) ** 2, xi
-    bb = (b[:, None] if b.dim() == 1 else b).to(r.dtype)
+    rows = _Rows(a, b, mesh)
+    bb = (rows.b[:, None] if b.dim() == 1 else rows.b).to(r.dtype)
     solve_r, solve_rt = _solvers(r)
 
     def grad(x):
-        res = _apply_precise(a, x) - bb
-        return _apply_t(a, res) if _is_sparse(a) else _mm_precise(a.T, res)
+        res = _apply_precise(rows.a, x) - bb
+        if _is_sparse(rows.a):
+            return rows.apply_t(res)
+        return rows.reduce(_mm_precise(rows.a.T, res))
 
     x = xp = bb.new_zeros((n, bb.shape[1]))
     for _ in range(iters):

@@ -81,8 +81,9 @@ def _signs_aligned(t, j, axis):
 
 
 def test_linalg_exports_this_slice():
-    """Groups 1-5 of the JAX package's linalg tier: exactly 76 names, each
-    one of ``randblas_tpu.linalg.__all__`` and each importable."""
+    """Groups 1-5 of the JAX package's linalg tier and the distributed
+    layer's five names: exactly 81 names, each one of
+    ``randblas_tpu.linalg.__all__`` and each importable."""
     group1 = {
         "make_embedding", "cholqr", "rangefinder", "qb_decompose",
         "qb_to_svd", "adaptive_rangefinder", "range_error_estimate", "rsvd",
@@ -109,19 +110,22 @@ def test_linalg_exports_this_slice():
         "tt_matrix_gaussian", "tt_add", "tt_dot", "tt_norm", "tt_scale",
         "tt_round", "tt_round_deterministic", "tt_matvec", "tt_single_pass",
         "tucker_from_dense", "tucker_full"}
-    assert len(tla.__all__) == 76
-    assert set(tla.__all__) == group1 | group2 | group3 | group4 | group5
+    distributed = {
+        "distributed_fd", "distributed_krylov_rangefinder", "distributed_qb",
+        "distributed_rangefinder", "distributed_rsvd"}
+    assert len(tla.__all__) == 81
+    assert set(tla.__all__) == (group1 | group2 | group3 | group4 | group5
+                                | distributed)
     assert set(tla.__all__) <= set(jla.__all__)
     assert all(callable(getattr(tla, name)) for name in tla.__all__)
     assert set(rb.__all__) <= set(rt.__all__)
 
 
 def test_only_the_distributed_names_are_left():
-    """What the port's linalg still lacks is the distributed layer's five
-    names and nothing else."""
-    assert set(jla.__all__) - set(tla.__all__) == {
-        "distributed_fd", "distributed_krylov_rangefinder", "distributed_qb",
-        "distributed_rangefinder", "distributed_rsvd"}
+    """With the distributed layer's five names, the port's linalg exports
+    exactly the JAX package's names: none is left."""
+    assert set(jla.__all__) == set(tla.__all__)
+    assert len(jla.__all__) == len(tla.__all__)
 
 
 @pytest.mark.parametrize("family,kind", [("saso", rt.SparseSkOp),

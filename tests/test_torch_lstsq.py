@@ -210,7 +210,23 @@ def test_validation():
     coo = rt.COOMatrix.from_dense(ta)
     with pytest.raises(ValueError, match="SRHT"):
         tla.sketch_and_solve_lsq(coo, tb, 30, ts, operator="srht")
-    for fn in (tla.sketch_and_precondition, tla.ridge_lsq, tla.ihs_lsq):
-        args = (ta, tb, 0.1, ts) if fn is tla.ridge_lsq else (ta, tb, ts)
-        with pytest.raises(NotImplementedError, match="item 12"):
-            fn(*args, mesh=object())
+    # on a mesh, as in the JAX package: the SRHT is column-sharded only,
+    # and sparse data rides the Gaussian operator; both checks come before
+    # the mesh is used
+    js = _states()[0]
+    for fn, jfn in ((tla.sketch_and_precondition, jla.sketch_and_precondition),
+                    (tla.ridge_lsq, jla.ridge_lsq),
+                    (tla.ihs_lsq, jla.ihs_lsq)):
+        targs = (ta, tb, 0.1, ts) if fn is tla.ridge_lsq else (ta, tb, ts)
+        jargs = ((jnp.asarray(a), jnp.asarray(b), 0.1, js)
+                 if fn is tla.ridge_lsq else (jnp.asarray(a), jnp.asarray(b),
+                                              js))
+        for f, args in ((fn, targs), (jfn, jargs)):
+            with pytest.raises(ValueError, match="'saso' and 'gaussian'"):
+                f(*args, operator="srht", mesh=object())
+    jcoo = JCOO.from_dense(jnp.asarray(a))
+    for f, args in ((tla.sketch_and_solve_lsq, (coo, tb, 30, ts)),
+                    (jla.sketch_and_solve_lsq, (jcoo, jnp.asarray(b), 30,
+                                                js))):
+        with pytest.raises(ValueError, match="use operator='gaussian'"):
+            f(*args, operator="saso", mesh=object())

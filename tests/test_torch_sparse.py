@@ -328,8 +328,8 @@ def test_compat_layout_helpers_match_jax():
 
 def test_every_port_module_imports_with_jax_blocked():
     """Every module of the port, chip_smoke.py and the scripts beside it
-    (kernel_variants.py and the ablations) import with jax and the JAX
-    package blocked in sys.modules."""
+    (kernel_variants.py, the ablations and dist_smoke.py) import with jax
+    and the JAX package blocked in sys.modules."""
     import os
     import subprocess
     import sys
@@ -343,7 +343,8 @@ def test_every_port_module_imports_with_jax_blocked():
         "names = [m.name for m in pkgutil.walk_packages(rt.__path__, "
         "'randblas_tpu_torch.')]\n"
         "for name in names + ['chip_smoke', 'kernel_variants', "
-        "'fused_ablation', 'saso_ablation', 'fill_ablation']:\n"
+        "'fused_ablation', 'saso_ablation', 'fill_ablation', "
+        "'dist_smoke']:\n"
         "    importlib.import_module(name)\n"
         "print(' '.join(names))\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
@@ -359,3 +360,6 @@ def test_every_port_module_imports_with_jax_blocked():
         "features", "leverage", "trace", "nystrom", "eigh", "rpcholesky",
         "amm", "qrcp", "krylov", "sgmres", "spectral", "rgs", "streaming",
         "quadrature", "density", "kaczmarz", "tt", "tucker")} <= names
+    # and the distributed layer
+    assert {"randblas_tpu_torch.parallel.distributed",
+            "randblas_tpu_torch.parallel.multihost"} <= names
