@@ -162,6 +162,18 @@ sparse data at config 4 (K3 a shard), (M6) pad-and-shard at d = 1000,
 m = 65000, n = 4093, (M7) SRHT columns (no kernel), (M13) FD over four
 shards merged.
 
+Phase 12 drives the solver tier and the tensor sketches on sharded inputs
+(DTensors) on the same 1 x 1 NCCL mesh, numbered after the JAX package's
+``dryrun_multichip`` cases 10-12: (M10) ``sgmres`` on a row-sharded A at
+(t)'s shape (K4 3), (M11) ``block_kaczmarz`` on a row-sharded system and
+(M12) ``block_gauss_seidel`` on a column-sharded one at (y)'s ('shuffle':
+K3 once; 'colnorm': none), (M15) ``tensor_sketch`` (K4 2) and (M16)
+``kfjlt_sketch`` (none) of column-sharded factors at (l)'s. Each against
+the unsharded call on the card (the dryrun's rtol 1e-4, atol 1e-5 and
+sgmres's true residual below 1e-4; the tensor sketches bitwise), with the
+same next_state, timed by ``randblas_tpu_torch.profiling.time_op`` beside
+the unsharded call.
+
 For K1 and K2 it also prints the launch plan
 of the main path and of (b) (tiles, thread-block cluster, grid, contraction
 splits, how many times the operator is generated, and the card's
@@ -2732,10 +2744,158 @@ def distributed_paths(rt, dev, drive, card, seed):
               "ihs_lsq")
         breakdown("(M14) ihs_lsq(mesh=)", ihs_mesh, card)
         del A14, b14, A14_dt, b14_dt
+        torch.cuda.empty_cache()
+        print(f"phase 11: {time.perf_counter() - t_phase:.1f} s (host clock, "
+              "checks and timings included)")
+        sharded_input_paths(rt, dev, drive, card, seed, mesh)
     finally:
         dist.destroy_process_group()
     torch.cuda.empty_cache()
-    print(f"phase 11: {time.perf_counter() - t_phase:.1f} s (host clock, "
+
+
+def sharded_input_paths(rt, dev, drive, card, seed, mesh):
+    """Phase 12: the solver tier and the tensor sketches on sharded inputs
+    (DTensors on phase 11's 1 x 1 NCCL mesh), paths numbered as the JAX
+    package's dryrun_multichip cases 10-12 and the tensor sketches after
+    them: (M10) sgmres on a row-sharded A at (t)'s shape, (M11)
+    block_kaczmarz on a row-sharded system and (M12) block_gauss_seidel
+    ('shuffle' and 'colnorm') on a column-sharded one at (y)'s, (M15)
+    tensor_sketch and (M16) kfjlt_sketch of column-sharded factors at (l)'s.
+    Each path: its launch counts, its result against the unsharded call on
+    the same card (rtol 1e-4 and atol 1e-5 for the solvers, as the
+    dryrun's, with sgmres's true residual below 1e-4; the tensor sketches
+    bitwise) and the same next_state, and its time by
+    ``profiling.time_op`` (CUDA events, median of 4 after a warm-up) beside
+    the unsharded call's. The data are made on the card from ``seed``."""
+    import math
+
+    from torch.distributed.tensor import (DTensor, Replicate, Shard,
+                                          distribute_tensor)
+    from randblas_tpu_torch import linalg as la
+    from randblas_tpu_torch import profiling
+
+    t_phase = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(seed + 60)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device=dev)
+
+    def rows(x):
+        return distribute_tensor(x, mesh, [Replicate(), Shard(0)])
+
+    def cols(x):
+        return distribute_tensor(x, mesh, [Replicate(), Shard(1)])
+
+    def local(x):
+        return x.to_local() if isinstance(x, DTensor) else x
+
+    def ends(out):
+        """(result, next_state) of a call that returns more between them."""
+        return out[0], out[-1]
+
+    def time_ms(fn, ops, flops):
+        """profiling.time_op of ``fn``: one call a step, the carry a
+        function of its first output's first entry."""
+        t = profiling.time_op(
+            lambda i, c, *_: c + local(fn()[0]).reshape(-1)[0] * 0, *ops,
+            flops=flops)
+        return t.seconds * 1e3, t.gflops
+
+    print(f"phase 12: the solver tier and the tensor sketches on sharded "
+          f"inputs, paths (M10)-(M16), on the 1x1 NCCL mesh [{card}]")
+
+    def path(label, sharded, plain, ops, expect, flops, exact=False):
+        """Drive ``sharded`` with the counts at 0, hold its output and
+        next_state against ``plain``'s, time both, and profile one call of
+        each (busy time, idle share). ``flops``: the path's products, for
+        the GFLOP/s beside its time."""
+        (got, nxt), _ = drive(label, lambda: ends(sharded()), expect)
+        want, nxt_want = ends(plain())
+        torch.cuda.synchronize()
+        check(isinstance(got, DTensor), f"{label}: {type(got).__name__}")
+        got = local(got)
+        check(got.shape == want.shape and bool(torch.isfinite(got).all()),
+              f"{label}: {tuple(got.shape)}")
+        check(nxt.to_dict() == nxt_want.to_dict(),
+              f"{label}: next_state differs from the unsharded call's")
+        same = torch.equal(got, want)
+        err = abs_err(got, want)
+        # is the unsharded call itself bitwise repeatable on the card?
+        again = torch.equal(ends(plain())[0], want)
+        if exact:
+            check(same, f"{label}: not bitwise the unsharded call ({err})")
+        else:
+            check(torch.allclose(got, want, rtol=1e-4, atol=1e-5),
+                  f"{label}: max abs err {err} against the unsharded call")
+        ms, gf = time_ms(sharded, ops, flops)
+        ms1, gf1 = time_ms(plain, ops, flops)
+        print(f"{label}: against the unsharded call bitwise {same}, max abs "
+              f"err {err:.3g} ({'bitwise' if exact else 'rtol 1e-4, atol '
+              '1e-5'}); the unsharded call twice bitwise {again}; "
+              f"next_state equal; profiling.time_op {ms:.3f} ms "
+              f"({gf:.1f} GFLOP/s), unsharded {ms1:.3f} ms ({gf1:.1f}) "
+              f"[{card}]")
+        breakdown(f"{label.split(' ')[0]} sharded", sharded, card)
+        breakdown(f"{label.split(' ')[0]} unsharded", plain, card)
+        return got
+
+    # -- (M10) sgmres on a row-sharded A at (t)'s shape -------------------
+    nt, basis, _, _ = PHASE9["t"]
+    At = randn(nt, nt) / math.sqrt(nt) + 4 * torch.eye(nt, device=dev)
+    bt = randn(nt)
+    At_dt = rows(At)
+    st = rt.RNGState.from_key(seed + 61)
+    x = path(f"(M10) sgmres n={nt}, basis {basis}, row-sharded A",
+             lambda: la.sgmres(At_dt, bt, st, basis=basis),
+             lambda: la.sgmres(At, bt, st, basis=basis), (At, bt),
+             {"K4": 3}, 2.0 * nt * nt * (basis + 1))
+    true = ((At.double() @ x.double() - bt.double()).norm()
+            / bt.double().norm()).item()
+    check(true <= SGMRES_TOL, f"(M10) true residual {true}")
+    print(f"(M10) true relative residual {true:.3g} <= {SGMRES_TOL}")
+    del At, At_dt
+
+    # -- (M11), (M12) Kaczmarz and Gauss-Seidel at (y)'s shape ------------
+    my, ny, blk, steps = PHASE10["y"]
+    Ay = randn(my, ny)
+    by = Ay @ randn(ny)
+    Ay_rows, by_rows, Ay_cols = rows(Ay), rows(by), cols(Ay)
+    st = rt.RNGState.from_key(seed + 62)
+    path(f"(M11) block_kaczmarz {my}x{ny}, block {blk}, {steps} steps, "
+         "row-sharded A and b",
+         lambda: la.block_kaczmarz(Ay_rows, by_rows, st, block=blk,
+                                   steps=steps),
+         lambda: la.block_kaczmarz(Ay, by, st, block=blk, steps=steps),
+         (Ay, by), {}, steps * (2.0 * blk * blk * ny + 4.0 * blk * ny))
+    nblocks = -(-ny // blk)
+    for sampling, expect, grams in (("shuffle", {"K3": 1}, nblocks),
+                                    ("colnorm", {}, steps)):
+        path(f"(M12) block_gauss_seidel '{sampling}' {my}x{ny}, block {blk}, "
+             f"{steps} steps, column-sharded A",
+             lambda: la.block_gauss_seidel(Ay_cols, by, st, block=blk,
+                                           steps=steps, sampling=sampling),
+             lambda: la.block_gauss_seidel(Ay, by, st, block=blk,
+                                           steps=steps, sampling=sampling),
+             (Ay, by), expect,
+             grams * 2.0 * blk * blk * my + steps * 4.0 * blk * my)
+    del Ay, by, Ay_rows, by_rows, Ay_cols
+    torch.cuda.empty_cache()
+
+    # -- (M15), (M16) the tensor sketches at (l)'s shape ------------------
+    ml, nl, dl = PHASE8["l"]
+    F1, F2 = randn(ml, nl), randn(ml, nl)
+    F_cols = [cols(F1), cols(F2)]
+    st = rt.RNGState.from_key(seed + 63)
+    for label, fn, expect in (("(M15) tensor_sketch", rt.tensor_sketch,
+                               {"K4": 2}),
+                              ("(M16) kfjlt_sketch", rt.kfjlt_sketch, {})):
+        path(f"{label} of two {ml}x{nl} factors to d = {dl}, "
+             "column-sharded", lambda: fn(F_cols, dl, st),
+             lambda: fn([F1, F2], dl, st), (F1, F2), expect,
+             2.0 * 2 * ml * nl, exact=True)
+    del F1, F2, F_cols
+    torch.cuda.empty_cache()
+    print(f"phase 12: {time.perf_counter() - t_phase:.1f} s (host clock, "
           "checks and timings included)")
 
 

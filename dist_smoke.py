@@ -4,7 +4,7 @@ over real NCCL ranks, one per GPU, at full width.
 
 Run from the repository root on a machine with two or more NVIDIA H100s:
 
-    python3 dist_smoke.py
+    python3 dist_smoke.py [--trace-dir DIR]
 
 It builds the kernels once, then starts one process per visible GPU with
 torchrun's environment (RANK, WORLD_SIZE, LOCAL_RANK, LOCAL_WORLD_SIZE,
@@ -23,7 +23,21 @@ inputs, numbered as the JAX package's dryrun_multichip:
   d = 1000, m = 65000, n = 4093; (M7) the SRHT over columns;
 - (M8) ``distributed_rsvd`` and (M9) ``distributed_krylov_rangefinder`` of
   a planted 32768 x 4096 matrix at rank 256, (M13) ``distributed_fd`` of
-  65536 x 1024 at ell = 256, (M14) ``ihs_lsq(mesh=)`` at 131072 x 2048.
+  65536 x 1024 at ell = 256, (M14) ``ihs_lsq(mesh=)`` at 131072 x 2048;
+- chip_smoke.py's phase 12, the solver tier and the tensor sketches on
+  sharded inputs: (M10) ``sgmres`` on a row-sharded 8192 x 8192 A (basis
+  80), (M11) ``block_kaczmarz`` on a row-sharded 65536 x 1024 system and
+  (M12) ``block_gauss_seidel`` ('shuffle' and 'colnorm') on a
+  column-sharded one (block 512, 48 steps), (M15) ``tensor_sketch`` and
+  (M16) ``kfjlt_sketch`` of two column-sharded 65536 x 64 factors to
+  d = 1024. These shard over 'data' only: on a mesh whose 'data' axis has
+  one rank each rank holds all of A, and the script says so and skips them.
+
+(M1)'s backward pass also runs inside ``profiling.trace`` on rank 0: the
+Chrome trace goes to ``--trace-dir`` (a temporary directory by default),
+and the script prints the device time a call of the NCCL all-reduce
+kernels beside that of K1, K2 and the rest (an all-reduce's time includes
+its wait for the slowest rank).
 
 Each path on each rank: the kernels it launched there (K1 to K5, counted
 by their wrappers, set to 0 just before), its result against the
@@ -52,6 +66,13 @@ PAD = (1000, 65000, 4093)
 RSVD = (32768, 4096, 256)            # (m, n, rank), planted
 FD = (65536, 1024, 256)              # (m, n, ell)
 IHS = (131072, 2048, 4096)           # (m, n, d)
+SGMRES = (8192, 80)                  # (n, basis): chip_smoke.py's (t)
+KACZ = (65536, 1024, 512, 48)        # (m, n, block, steps): its (y)
+TS = (65536, 64, 1024)               # (m, n, d) of two factors: its (l)
+SOLVER_TOL = 1e-4    # the solvers' x vs the unsharded run's, normalised
+TS_TOL = 1e-6        # a tensor sketch of a rank's columns vs the full call:
+                     # the same per-column arithmetic, but the FFTs and the
+                     # Hadamard GEMMs are planned for another batch width
 K1_REL_TOL = 1e-3    # bf16-operand kernels, sums in another order
 K4_REL_TOL = 1e-5    # K4 against K4 on the same bf16-rounded data
 F32_REL_TOL = 1e-4   # float32 sums of 20000 terms in another order
@@ -98,10 +119,11 @@ def rank_main():
     import torch.distributed as dist
     from torch.distributed.tensor import (DTensor, Replicate, Shard,
                                           distribute_tensor)
-    from kernel_variants import card_name, time_ms
+    from kernel_variants import card_name, event_device_us, time_ms
     import randblas_tpu_torch as rt
     from randblas_tpu_torch import linalg as la
     from randblas_tpu_torch import parallel as par
+    from randblas_tpu_torch import profiling
     from randblas_tpu_torch.ops import ell_spmm, fused_sketch, saso_sketch
 
     par.initialize_multihost()
@@ -157,6 +179,37 @@ def rank_main():
             + ("" if one is None else f", single-device {one:.3f} ms")
             + f" [{card}]")
 
+    def traced_backward(label, grad, calls=3):
+        """(M1)'s forward + backward in a profiling.trace window on rank 0
+        (the others run the same calls untraced): device ms a call of the
+        NCCL kernels (the all-reduces over 'data' and 'model'), of K1 and
+        K2, and of the rest, against the window's wall ms a call."""
+        grad()
+        torch.cuda.synchronize()
+        dist.barrier()
+        trace_dir = (os.path.join(os.environ["DIST_SMOKE_TRACE_DIR"],
+                                  label.replace(" ", "_").replace("=", ""))
+                     if rank == 0 else None)
+        t0 = time.perf_counter()
+        with profiling.trace(trace_dir) as prof:
+            for _ in range(calls):
+                grad()
+            torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / calls
+        if prof is None:
+            return
+        kernels = [e for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA]
+        parts = {"NCCL": 0.0, "K1 and K2": 0.0, "other": 0.0}
+        for e in kernels:
+            key = ("NCCL" if "nccl" in e.key.lower() else "K1 and K2"
+                   if "fused_sketch" in e.key else "other")
+            parts[key] += event_device_us(e) / 1e3 / calls
+        say(f"(M1) {label} forward + backward, rank 0's trace: "
+            + ", ".join(f"{k} {v:.3f} ms" for k, v in parts.items())
+            + f" device time a call; {wall:.3f} ms wall a call with the "
+            f"profiler on; trace in {trace_dir} [{card}]")
+
     say(f"dist_smoke: {world} NCCL ranks, backend "
         f"{dist.get_backend()}, torch {torch.__version__} [{card}]")
     rows = [Replicate(), Shard(0)]
@@ -208,6 +261,7 @@ def rank_main():
 
         path(f"(M1) {label} forward + backward", grad, {"K1": 1, "K2": 1},
              g1, K1_REL_TOL, reps=3)
+        traced_backward(label, grad)
         del leaf
         A2_dt = distribute_tensor(A2, mesh, cols)
         path(f"(M2) {label} distributed_sketch_right",
@@ -289,11 +343,76 @@ def rank_main():
             lambda: la.ihs_lsq(A14, b14, st, d=d14, operator="gaussian"))
         del A14_dt, b14_dt
 
+    del A8, A13, g13, A14, b14
+    torch.cuda.empty_cache()
+    n10, basis = SGMRES
+    A10 = same(randn(n10, n10) / n10 ** 0.5
+               + 4 * torch.eye(n10, device=dev))
+    b10 = randn(n10)
+    st10 = rt.RNGState.from_key(61)
+    x10 = la.sgmres(A10, b10, st10, basis=basis)[0]
+    m11, n11, blk, steps = KACZ
+    A11 = randn(m11, n11)
+    b11 = same(A11 @ randn(n11))
+    st11 = rt.RNGState.from_key(62)
+    x11 = la.block_kaczmarz(A11, b11, st11, block=blk, steps=steps)[0]
+    x12 = {s_: la.block_gauss_seidel(A11, b11, st11, block=blk, steps=steps,
+                                     sampling=s_)[0]
+           for s_ in ("shuffle", "colnorm")}
+    m15, n15, d15 = TS
+    F = [randn(m15, n15), randn(m15, n15)]
+    st15 = rt.RNGState.from_key(63)
+    ts = rt.tensor_sketch(F, d15, st15)[0]
+    kf = rt.kfjlt_sketch(F, d15, st15)[0]
+    for label, mesh in meshes(par, world):
+        if mesh.size(1) == 1:
+            say(f"(M10)-(M16) {label}: not sharded on this layout ('data' "
+                "has one rank, so each rank would hold all of A); skipped")
+            continue
+        A10_dt = distribute_tensor(A10, mesh, rows)
+        path(f"(M10) {label} sgmres, row-sharded A",
+             lambda: la.sgmres(A10_dt, b10, st10, basis=basis)[0],
+             {"K4": 3}, x10, SOLVER_TOL,
+             lambda: la.sgmres(A10, b10, st10, basis=basis))
+        A11_rows = distribute_tensor(A11, mesh, rows)
+        b11_rows = distribute_tensor(b11, mesh, rows)
+        path(f"(M11) {label} block_kaczmarz, row-sharded A and b",
+             lambda: la.block_kaczmarz(A11_rows, b11_rows, st11, block=blk,
+                                       steps=steps)[0], {}, x11, SOLVER_TOL,
+             lambda: la.block_kaczmarz(A11, b11, st11, block=blk,
+                                       steps=steps))
+        del A11_rows, b11_rows
+        A11_cols = distribute_tensor(A11, mesh, cols)
+        for s_, expect in (("shuffle", {"K3": 1}), ("colnorm", {})):
+            path(f"(M12) {label} block_gauss_seidel '{s_}', column-sharded "
+                 "A", lambda: la.block_gauss_seidel(
+                     A11_cols, b11, st11, block=blk, steps=steps,
+                     sampling=s_)[0], expect, x12[s_], SOLVER_TOL,
+                 lambda: la.block_gauss_seidel(A11, b11, st11, block=blk,
+                                               steps=steps, sampling=s_))
+        del A10_dt, A11_cols
+        F_cols = [distribute_tensor(f, mesh, cols) for f in F]
+        path(f"(M15) {label} tensor_sketch, column-sharded factors",
+             lambda: rt.tensor_sketch(F_cols, d15, st15)[0], {"K4": 2}, ts,
+             TS_TOL, lambda: rt.tensor_sketch(F, d15, st15))
+        path(f"(M16) {label} kfjlt_sketch, column-sharded factors",
+             lambda: rt.kfjlt_sketch(F_cols, d15, st15)[0], {}, kf, TS_TOL,
+             lambda: rt.kfjlt_sketch(F, d15, st15))
+        del F_cols
+
     dist.barrier()
     dist.destroy_process_group()
 
 
 def main():
+    import argparse
+    import tempfile
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument("--trace-dir", default=None,
+                        help="where rank 0 writes the Chrome traces of "
+                        "(M1)'s backward pass (default: a new temporary "
+                        "directory)")
+    cli = parser.parse_args()
     if not torch.cuda.is_available() or torch.cuda.device_count() < 2:
         sys.exit("dist_smoke: needs two or more CUDA devices; nothing was "
                  "run")
@@ -301,6 +420,8 @@ def main():
     from randblas_tpu_torch.ops import _build
     _build.load()                    # once, before the ranks share it
     world = torch.cuda.device_count()
+    trace_dir = os.path.abspath(cli.trace_dir or tempfile.mkdtemp(
+        prefix="dist_smoke_traces"))
     with socket.socket() as s:
         s.bind(("localhost", 0))
         port = s.getsockname()[1]
@@ -308,6 +429,7 @@ def main():
     for rank in range(world):
         # two "hosts" of world / 2 ranks, for the multi-host mesh
         env = dict(os.environ, RANK=str(rank), WORLD_SIZE=str(world),
+                   DIST_SMOKE_TRACE_DIR=trace_dir,
                    LOCAL_RANK=str(rank), LOCAL_WORLD_SIZE=str(world // 2),
                    MASTER_ADDR="localhost", MASTER_PORT=str(port))
         procs.append(subprocess.Popen([sys.executable, __file__, "--rank"],

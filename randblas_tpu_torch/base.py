@@ -9,6 +9,7 @@ distributions (it decides which entries receive which random values), and
 from __future__ import annotations
 
 import enum
+import sys
 
 
 class MajorAxis(enum.Enum):
@@ -42,3 +43,16 @@ def require(cond: bool, msg: str):
     """Host-side validation: raise ValueError when ``cond`` is false."""
     if not cond:
         raise ValueError(f"randblas_tpu_torch requirement failed: {msg}")
+
+
+def is_dtensor(x) -> bool:
+    """Whether ``x`` is a ``torch.distributed`` DTensor. A DTensor exists
+    only once its module is imported, so this imports nothing."""
+    mod = sys.modules.get("torch.distributed.tensor")
+    return mod is not None and isinstance(x, mod.DTensor)
+
+
+def mesh_of(*xs):
+    """The mesh of the first DTensor among ``xs``; None if none is one (no
+    import either)."""
+    return next((x.device_mesh for x in xs if is_dtensor(x)), None)

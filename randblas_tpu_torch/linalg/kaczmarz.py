@@ -16,6 +16,23 @@ state); the steps run in a host loop on A's device.
   (Leventhal-Lewis 2010): converges geometrically to the least-squares
   solution of tall full-rank systems, consistent or not.
 
+Sharded inputs (the JAX package gets them from XLA's sharding
+propagation): ``block_kaczmarz`` takes A and b row-sharded over a mesh's
+'data' axis (DTensors laid out [Replicate(), Shard(0)]),
+``block_gauss_seidel`` A column-sharded ([Replicate(), Shard(1)]). Each
+rank keeps its own rows or columns; the weights are computed there and
+gathered, so the sampled blocks are the unsharded run's. Where a step needs
+a whole panel (Kaczmarz's rows, the iid Gauss-Seidel orders' per-step
+Grams), it is assembled with one all-reduce over 'data' in which every row
+has one owner and the others add zeros, so it is exact. The 'shuffle'
+order assembles each block's panel once, for its Gram; a step then
+all-reduces only the (block,) product A_J^T r (exact, one owner an entry)
+and the (m,) partial residual update A_J dx (summed over the ranks in
+another order than the unsharded product). The rest of a step runs
+replicated on every rank, and x comes back as a replicated DTensor on A's
+mesh. With A laid out so, no rank holds the whole of A (a DTensor laid out
+otherwise is gathered first, the distributed layer's rule).
+
 Precision: the residuals, right-hand sides and updates run in float32 with
 TF32 off (the JAX package's ``Precision.HIGHEST``); the Gauss-Seidel Grams
 are plain float32 products (its default precision): they only
@@ -29,7 +46,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from ..base import require
+from ..base import is_dtensor, mesh_of, require
 from ..dense import DenseDist, DenseDistName, DenseSkOp
 from ..rng.state import RNGState
 from ..util import sample_indices_iid, sample_indices_iid_uniform, \
@@ -41,14 +58,18 @@ def _sample_blocks(w: Optional[torch.Tensor], n: int, steps: int,
                    block: int, state: RNGState, device=None
                    ) -> Tuple[torch.Tensor, RNGState]:
     """(steps, block) int32 indices from the chained Uniform stream,
-    importance-sampled from weights ``w`` (on w's device) or uniform on
-    ``device`` when w is None. One stream read for the whole solve."""
+    importance-sampled from weights ``w`` (on w's device; all zeros sample
+    uniformly, ``_nonzero_weights``) or uniform on ``device`` when w is
+    None. A DTensor of weights is made a plain tensor once, here. One
+    stream read for the whole solve."""
     if w is None:
         idx, nxt = sample_indices_iid_uniform(n, steps * block, state,
                                               device)
     else:
-        idx, nxt = sample_indices_iid(weights_to_cdf(w), steps * block,
-                                      state)
+        if is_dtensor(w):
+            w = w.full_tensor()
+        idx, nxt = sample_indices_iid(weights_to_cdf(_nonzero_weights(w)),
+                                      steps * block, state)
     return idx.reshape(steps, block), nxt
 
 
@@ -89,8 +110,8 @@ def block_kaczmarz(a: torch.Tensor, b: torch.Tensor, state: RNGState, *,
 
     A_tau^+ applied through the damped (block, block) Gram solve. For an
     inconsistent b it stalls at a ||r*||-sized horizon: use
-    :func:`block_gauss_seidel` for least squares. Returns ``(x,
-    next_state)``."""
+    :func:`block_gauss_seidel` for least squares. A and b may be
+    row-sharded DTensors (module notes). Returns ``(x, next_state)``."""
     require(a.dim() == 2, "block_kaczmarz takes a matrix A")
     m, n = a.shape
     require(b.shape[0] == m, "b must have A's row count")
@@ -99,8 +120,15 @@ def block_kaczmarz(a: torch.Tensor, b: torch.Tensor, state: RNGState, *,
     require(sampling in ("rownorm", "uniform"),
             "sampling must be 'rownorm' or 'uniform'")
 
-    w = _nonzero_weights((a * a).sum(dim=1)) if sampling == "rownorm" \
-        else None
+    mesh = mesh_of(a, b, x0)
+    if mesh is not None:
+        from ..parallel import distributed as pd
+        a, off = pd.data_chunk(a, mesh, 0)
+        b = pd.data_chunk(b, mesh, 0)[0]
+        x0 = pd.gathered(x0)
+    w = (a * a).sum(dim=1) if sampling == "rownorm" else None
+    if mesh is not None and w is not None:
+        w = pd.data_sharded(w, mesh, 0, (m,))   # gathered by the sampler
     idx, nxt = _sample_blocks(w, m, steps, block, state, a.device)
     idx = idx.long()
     b = b.to(a.dtype)
@@ -108,11 +136,15 @@ def block_kaczmarz(a: torch.Tensor, b: torch.Tensor, state: RNGState, *,
          else x0.to(device=a.device, dtype=a.dtype))
     with _ieee_f32():
         for ix in idx:
-            rows = a.index_select(0, ix)                  # (s, n)
-            r = b.index_select(0, ix) - rows @ x
+            if mesh is None:
+                rows, b_rows = a.index_select(0, ix), b.index_select(0, ix)
+            else:       # (s, n), (s,) assembled exactly over 'data'
+                rows, b_rows = pd.owned_rows((a, b), off, ix,
+                                             mesh.get_group("data"))
+            r = b_rows - rows @ x
             y = _damped_spd_solve(rows @ rows.T, r)
             x = x + rows.T @ y
-    return x, nxt
+    return (x if mesh is None else pd.replicated_on(x, mesh)), nxt
 
 
 def block_gauss_seidel(a: torch.Tensor, b: torch.Tensor, state: RNGState,
@@ -129,7 +161,8 @@ def block_gauss_seidel(a: torch.Tensor, b: torch.Tensor, state: RNGState,
         dx = (A_J)^+ r,   x_J <- x_J + dx,   r <- r - A_J dx
 
     The residual is carried incrementally, so a step reads only the sampled
-    (m, block) column panel. Returns ``(x, next_state)``.
+    (m, block) column panel. A may be a column-sharded DTensor (module
+    notes). Returns ``(x, next_state)``.
 
     ``sampling``: ``'shuffle'`` (the default) draws one counter-addressed
     random permutation of the columns per solve and sweeps the fixed
@@ -147,23 +180,36 @@ def block_gauss_seidel(a: torch.Tensor, b: torch.Tensor, state: RNGState,
     require(sampling in ("shuffle", "colnorm", "uniform"),
             "sampling must be 'shuffle', 'colnorm' or 'uniform'")
 
+    mesh, off = mesh_of(a, b, x0), 0
+    if mesh is not None:
+        from ..parallel import distributed as pd
+        a, off = pd.data_chunk(a, mesh, 1)
+        b, x0 = pd.gathered(b), pd.gathered(x0)
     x_init = (a.new_zeros((n,)) if x0 is None
               else x0.to(device=a.device, dtype=a.dtype))
     with _ieee_f32():
-        r_init = b.to(a.dtype) - a @ x_init
+        ax = a @ x_init if mesh is None else pd.sum_over(
+            a @ x_init[off:off + a.shape[1]], mesh.get_group("data"))
+        r_init = b.to(a.dtype) - ax
 
     if sampling == "shuffle":
-        return _gauss_seidel_shuffle(a, x_init, r_init, state, block, steps)
+        x, nxt = _gauss_seidel_shuffle(a, x_init, r_init, state, block,
+                                       steps, mesh, off)
+        return (x if mesh is None else pd.replicated_on(x, mesh)), nxt
 
-    w = _nonzero_weights((a * a).sum(dim=0)) if sampling == "colnorm" \
-        else None
+    w = (a * a).sum(dim=0) if sampling == "colnorm" else None
+    if mesh is not None and w is not None:
+        w = pd.data_sharded(w, mesh, 0, (n,))   # gathered by the sampler
     idx, nxt = _sample_blocks(w, n, steps, block, state, a.device)
     idx = idx.long()
     # one contiguous A^T, so each panel is a gather of whole rows
     at = a.T.contiguous()
     x, r = x_init, r_init
     for jx in idx:
-        panel = at.index_select(0, jx)                    # (s, m)
+        if mesh is None:
+            panel = at.index_select(0, jx)                # (s, m)
+        else:           # its Gram needs the whole panel: assembled exactly
+            panel, = pd.owned_rows((at,), off, jx, mesh.get_group("data"))
         g = panel @ panel.T          # plain float32: see the module notes
         with _ieee_f32():
             dx = _damped_spd_solve(g, panel @ r)
@@ -171,19 +217,27 @@ def block_gauss_seidel(a: torch.Tensor, b: torch.Tensor, state: RNGState,
             # indices, so adding every copy applies the intended total
             x = x.index_add(0, jx, dx)
             r = r - panel.T @ dx
-    return x, nxt
+    return (x if mesh is None else pd.replicated_on(x, mesh)), nxt
 
 
 def _gauss_seidel_shuffle(a, x_init, r_init, state: RNGState, block: int,
-                          steps: int) -> Tuple[torch.Tensor, RNGState]:
+                          steps: int, mesh=None, off: int = 0
+                          ) -> Tuple[torch.Tensor, RNGState]:
     """Shuffled-partition block Gauss-Seidel: permute the columns once (a
     stable argsort of one counter-addressed Uniform row, reproducible and
     seed-chained like every operator), pad A^T's permuted rows to a whole
     number of blocks with zero rows (phantom coordinates whose update is
     exactly 0), then sweep the fixed partition cyclically. Each block's
     damped Gram inverse is computed once, by one batched Cholesky solve, so
-    a step is three matrix-vector products."""
-    m, n = a.shape
+    a step is three matrix-vector products.
+
+    With a ``mesh``, ``a`` is this rank's columns [off, off + k) of A. Each
+    block's panel is assembled exactly once, for its Gram, and dropped
+    (phantom index -1 assembles to zeros); the rank keeps its own columns
+    of each block and their places in it. A step then all-reduces the
+    block's A_J^T r, each entry from its one owner, and the partial
+    products A_J dx of the residual update."""
+    m, n = a.shape[0], x_init.shape[0]
     u_op = DenseSkOp(DenseDist(1, n, family=DenseDistName.Uniform), state,
                      dtype=torch.float32)
     perm = torch.argsort(u_op.materialize(device=a.device)[0], stable=True)
@@ -191,11 +245,26 @@ def _gauss_seidel_shuffle(a, x_init, r_init, state: RNGState, block: int,
 
     nblocks = -(-n // block)
     n_pad = nblocks * block
-    at_p = a.T.index_select(0, perm)
-    if n_pad > n:
-        at_p = torch.cat([at_p, a.new_zeros((n_pad - n, m))])
-    panels = at_p.reshape(nblocks, block, m)
-    grams = panels @ panels.transpose(1, 2)     # plain float32
+    if mesh is None:
+        at_p = a.T.index_select(0, perm)
+        if n_pad > n:
+            at_p = torch.cat([at_p, a.new_zeros((n_pad - n, m))])
+        panels = at_p.reshape(nblocks, block, m)
+        grams = panels @ panels.transpose(1, 2)     # plain float32
+    else:
+        from ..parallel.distributed import owned_rows, sum_over
+        group = mesh.get_group("data")
+        at = a.T.contiguous()
+        padded = torch.cat([perm, perm.new_full((n_pad - n,), -1)])
+        grams, mine = [], []
+        for bi in range(nblocks):
+            jx = padded[bi * block:(bi + 1) * block]
+            panel, = owned_rows((at,), off, jx, group)
+            grams.append(panel @ panel.T)           # plain float32
+            loc = jx - off
+            pos = torch.nonzero((loc >= 0) & (loc < at.shape[0]))[:, 0]
+            mine.append((pos, at.index_select(0, loc[pos])))
+        grams = torch.stack(grams)
     s = block
     lam = torch.clamp(torch.finfo(a.dtype).eps
                       * torch.diagonal(grams, dim1=1, dim2=2).sum(-1)
@@ -210,10 +279,16 @@ def _gauss_seidel_shuffle(a, x_init, r_init, state: RNGState, block: int,
     with _ieee_f32():
         for step in range(steps):
             bi = step % nblocks
-            panel = panels[bi]
-            dx = invs[bi] @ (panel @ r)
+            if mesh is None:
+                panel = panels[bi]
+                dx = invs[bi] @ (panel @ r)
+                r = r - panel.T @ dx
+            else:
+                pos, cols = mine[bi]
+                g = a.new_zeros((s,)).index_copy_(0, pos, cols @ r)
+                dx = invs[bi] @ sum_over(g, group)
+                r = r - sum_over(cols.T @ dx[pos], group)
             xp[bi * block:(bi + 1) * block] += dx
-            r = r - panel.T @ dx
     x = a.new_zeros((n,))
     x[perm] = xp[:n]
     return x, nxt

@@ -44,16 +44,13 @@ class _Rows:
     otherwise."""
 
     def __init__(self, a, b, mesh):
-        from ..parallel.distributed import (_mesh, _shard_extent, gathered,
-                                            local_block)
+        from ..parallel.distributed import data_chunk, gathered
         self.group = None
         if mesh is None or _is_sparse(a):
             self.a, self.b = gathered(a), gathered(b)
             return
-        shape, coord = _mesh(mesh)
-        per = _shard_extent(a.shape[0], shape[1])
-        self.a = local_block(a, mesh, 0, per, coord[1])
-        self.b = local_block(b, mesh, 0, per, coord[1])
+        self.a = data_chunk(a, mesh, 0)[0]
+        self.b = data_chunk(b, mesh, 0)[0]
         self.group = mesh.get_group("data")
 
     def reduce(self, t: torch.Tensor) -> torch.Tensor:

@@ -9,6 +9,14 @@ sketched residual within (1 +- distortion) of the true one over the Krylov
 subspace, so GMRES's quasi-optimality is recovered at truncated-Arnoldi
 cost. The basis loop runs on the host, writing preallocated (n, m)
 buffers; the default 'saso' embedding runs the SASO kernel K4 on the card.
+
+A row-sharded A (a DTensor laid out [Replicate(), Shard(0)] over a mesh's
+'data' axis; the JAX package takes it through XLA's sharding propagation)
+keeps its rows on their ranks: a matvec is this rank's rows times v, then
+one all-gather over 'data', so the Krylov vectors are plain tensors,
+replicated on every rank, and the sketch, the small least-squares solves
+and the refinement run unchanged on each. x comes back as a replicated
+DTensor on A's mesh.
 """
 
 from __future__ import annotations
@@ -18,7 +26,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from ..base import require
+from ..base import mesh_of, require
 from ..rng.state import RNGState
 from ..skge import sketch_general
 from .embed import make_embedding
@@ -97,6 +105,9 @@ def sgmres(a, b: torch.Tensor, state: RNGState, *, basis: int = 50,
     refinement over the same basis (sketch the true residual b - A x, solve
     the small problem again, correct x).
 
+    ``a`` may also be a row-sharded DTensor, and ``b`` a DTensor (module
+    notes).
+
     Returns ``(x, sketched_relative_residual, next_state)``, the residual
     estimate ||S(A x - b)|| / ||S b||."""
     require(b.dim() == 1, "sgmres expects a single right-hand side (n,)")
@@ -113,7 +124,12 @@ def sgmres(a, b: torch.Tensor, state: RNGState, *, basis: int = 50,
     require(d >= m, "embedding dimension d must be >= basis")
     _warn_thin_embedding(d, m, n, d_was_default)
 
-    matvec = make_matvec(a)
+    mesh = mesh_of(a, b)
+    if mesh is None:
+        matvec = make_matvec(a)
+    else:
+        from ..parallel import distributed as pd
+        matvec, b = _sharded_matvec(a, mesh), pd.gathered(b)
     bb = b.to(dtype) if dtype is not None else b
     q, aq = _truncated_arnoldi(matvec, bb, m, k)
 
@@ -132,4 +148,16 @@ def sgmres(a, b: torch.Tensor, state: RNGState, *, basis: int = 50,
         z = qr_clipped_lstsq(sc, sr)
         x = x + q @ z
         sr = sr - sc @ z
+    if mesh is not None:
+        x = pd.replicated_on(x, mesh)
     return x, torch.linalg.norm(sr) / sb_norm, S.next_state
+
+
+def _sharded_matvec(a, mesh):
+    """v -> A @ v for A row-sharded over ``mesh``'s 'data' axis: this
+    rank's rows times v (``make_matvec``'s product), then the ranks' parts
+    all-gathered into the full (n,) vector."""
+    from ..parallel.distributed import all_gather_rows, data_chunk
+    local = make_matvec(data_chunk(a, mesh, 0)[0])
+    n, group = a.shape[0], mesh.get_group("data")
+    return lambda v: all_gather_rows(local(v), n, group)

@@ -1,13 +1,24 @@
 """ctypes bindings for the native host engine (native/randblas_host.cpp):
-the port's own loader of the library the JAX package's native.py loads.
+the port's own build and loader of the library the JAX package's native.py
+loads.
 
 The library is optional: ``available()`` gates every entry point, and the
-numpy and PyTorch paths are always present. It is built by
-``make -C native``; the first call of ``available()`` (or of any entry
-point) runs that build where the library is missing (``_MAKE_ARGS``: with
-the Makefile's compiler, then with the g++ on PATH, then without OpenMP)
-and loads it. If the build or the load fails, ``available()`` is False
-from then on: there is one attempt per process.
+numpy and PyTorch paths are always present. The first call of
+``available()`` (or of any entry point) compiles ``native/randblas_host.cpp``
+with ``native/Makefile``'s flags into ``randblas_tpu_torch/_build/``
+(``build``), where missing, and loads it. The compile tries, in order, the
+Makefile's compiler (``$CXX``, else g++), the g++ on PATH, and the
+Makefile's flags without -fopenmp (``_variants``). The library's name holds
+a hash of the source and the flags, so an edited source builds anew. If the
+build or the load fails, ``available()`` is False from then on: there is one
+attempt per process.
+
+Processes share the build: it runs under an exclusive ``fcntl.flock`` on a
+lock file in the build directory, compiles to a temporary file and moves it
+into place with ``os.replace``, so a process sees either no library or a
+whole one, and only the first compiles. The port never writes
+``native/librandblas_host.so``, which the JAX package's loader builds in
+place with ``make``.
 
 The x64 fill (``fill_rowmajor64``) is what ``dense.fill_dense_submat``
 runs for an x64 seed when ``dense.use_native_x64`` allows.
@@ -16,8 +27,11 @@ runs for an x64 seed when ``dense.use_native_x64`` allows.
 from __future__ import annotations
 
 import ctypes
+import fcntl
+import hashlib
 import os
 import subprocess
+import time
 from typing import Optional
 
 import numpy as np
@@ -25,28 +39,67 @@ import numpy as np
 _LIB: Optional[ctypes.CDLL] = None
 _TRIED = False
 
-_REPO_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-_SO_PATH = os.path.join(_REPO_ROOT, "native", "librandblas_host.so")
+_PKG = os.path.dirname(os.path.abspath(__file__))
+_SOURCE = os.path.join(os.path.dirname(_PKG), "native", "randblas_host.cpp")
+_BUILD_DIR = os.path.join(_PKG, "_build")
+# native/Makefile's CXXFLAGS
+_FLAGS = ("-O3", "-march=native", "-fPIC", "-fopenmp", "-Wall", "-Wextra",
+          "-std=c++17")
 
-# make's arguments, tried in order until one builds: the Makefile as it
-# is; the g++ on PATH, for an environment whose $CXX has no OpenMP runtime
-# (no libgomp.spec); and the Makefile's flags without -fopenmp, which
-# leaves the engine's pragmas unused and runs it on one thread with the
-# same values (its loops are independent per row or vector)
-_MAKE_ARGS = ((), ("CXX=g++",),
-              ("CXXFLAGS=-O3 -march=native -fPIC -Wall -Wextra -std=c++17",))
+# wall seconds of this process's compile; None when it compiled nothing
+build_seconds = None
 
 
-def _build() -> bool:
-    for args in _MAKE_ARGS:
+def _variants():
+    """(compiler, flags) tried in order until one builds: the Makefile's
+    compiler; the g++ on PATH, for an environment whose $CXX has no OpenMP
+    runtime (no libgomp.spec); and the Makefile's flags without -fopenmp,
+    which leaves the engine's pragmas unused and runs it on one thread with
+    the same values (its loops are independent per row or vector)."""
+    cxx = os.environ.get("CXX") or "g++"
+    serial = tuple(f for f in _FLAGS if f != "-fopenmp")
+    return ((cxx, _FLAGS), ("g++", _FLAGS), (cxx, serial))
+
+
+def _library_path() -> str:
+    with open(_SOURCE, "rb") as f:
+        h = hashlib.sha256(f.read())
+    h.update(" ".join(_FLAGS).encode())
+    return os.path.join(_BUILD_DIR,
+                        f"librandblas_host-{h.hexdigest()[:16]}.so")
+
+
+def build() -> Optional[str]:
+    """The library's path in ``_BUILD_DIR`` (the package's ``_build/``),
+    compiled there first if it is missing; None if no variant compiles.
+    The compile holds an exclusive lock on the directory's lock file and
+    publishes the library with one ``os.replace``."""
+    global build_seconds
+    path = _library_path()
+    if os.path.exists(path):
+        return path
+    os.makedirs(_BUILD_DIR, exist_ok=True)
+    with open(os.path.join(_BUILD_DIR, "librandblas_host.lock"), "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if os.path.exists(path):      # another process built it meanwhile
+            return path
+        tmp = f"{path}.{os.getpid()}.tmp"
+        t0 = time.perf_counter()
         try:
-            subprocess.run(["make", "-C", os.path.join(_REPO_ROOT, "native"),
-                            *args], check=True, capture_output=True,
-                           timeout=120)
-            return True
-        except Exception:
-            continue
-    return False
+            for cxx, flags in _variants():
+                try:
+                    subprocess.run([cxx, *flags, "-shared", "-o", tmp,
+                                    _SOURCE], check=True,
+                                   capture_output=True, timeout=120)
+                except (OSError, subprocess.SubprocessError):
+                    continue
+                os.replace(tmp, path)
+                build_seconds = time.perf_counter() - t0
+                return path
+        finally:
+            if os.path.exists(tmp):
+                os.unlink(tmp)
+    return None
 
 
 def _load() -> Optional[ctypes.CDLL]:
@@ -54,11 +107,12 @@ def _load() -> Optional[ctypes.CDLL]:
     if _LIB is not None or _TRIED:
         return _LIB
     _TRIED = True
-    if not os.path.exists(_SO_PATH) and not _build():
-        return None
     try:
-        lib = ctypes.CDLL(_SO_PATH)
-    except OSError:
+        path = build()
+        if path is None:              # no variant compiled
+            return None
+        lib = ctypes.CDLL(path)
+    except OSError:                   # no source, or a bad load
         return None
     u32p = np.ctypeslib.ndpointer(np.uint32, flags="C_CONTIGUOUS")
     f32p = np.ctypeslib.ndpointer(np.float32, flags="C_CONTIGUOUS")
@@ -118,8 +172,8 @@ def available() -> bool:
 def _lib() -> ctypes.CDLL:
     lib = _load()
     if lib is None:
-        raise RuntimeError("native library unavailable: make -C native "
-                           "failed or no compiler is present")
+        raise RuntimeError("native library unavailable: no C++ compiler "
+                           "built native/randblas_host.cpp")
     return lib
 
 

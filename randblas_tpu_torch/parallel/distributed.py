@@ -47,6 +47,7 @@ shard_map's ``check_vma`` (eager PyTorch compiles nothing), and
 
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
@@ -559,6 +560,72 @@ def distributed_sketch_sparse_data(S: DenseSkOp, A, mesh: DeviceMesh, *,
     out = sum_over(part.contiguous(), mesh.get_group("data"))
     return as_dtensor(out, mesh, [Shard(0), Replicate()],
                       (S.n_rows, coo.n_cols))
+
+
+def data_chunk(x, mesh: DeviceMesh, dim: int):
+    """(local, offset): this rank's block of ``x`` along ``dim`` over
+    'data' in DTensor's chunking (ceil(extent / data) a rank, the last ones
+    shorter or empty) and its offset, clipped to the extent as
+    ``shard_span`` clips it, through ``local_block``: a DTensor laid out
+    [Replicate(), Shard(dim)] gives its local tensor with no collective."""
+    shape, coord = _mesh(mesh)
+    per = _shard_extent(x.shape[dim], shape[1])
+    off = shard_span(x.shape[dim], per, coord[1])[0]
+    return local_block(x, mesh, dim, per, coord[1]), min(off, x.shape[dim])
+
+
+def data_sharded(local: torch.Tensor, mesh: DeviceMesh, dim: int,
+                 shape) -> DTensor:
+    """The DTensor of ``shape`` laid out [Replicate(), Shard(dim)] whose
+    'data' chunks are the ranks' ``local`` blocks."""
+    placements = [Replicate(), Shard(dim)]
+    return as_dtensor(local.contiguous(), mesh, placements, shape)
+
+
+def all_gather_rows(part: torch.Tensor, total: int, group) -> torch.Tensor:
+    """The (total, ...) tensor whose DTensor chunks over ``group`` (rows)
+    are the ranks' ``part``: each part zero-padded to the chunk extent, one
+    all-gather, the padding dropped."""
+    parts = dist.get_world_size(group)
+    per = _shard_extent(total, parts)
+    padded = part.new_zeros((per,) + tuple(part.shape[1:]))
+    padded[:part.shape[0]] = part
+    outs = [torch.empty_like(padded) for _ in range(parts)]
+    dist.all_gather(outs, padded, group=group)
+    return torch.cat(outs)[:total]
+
+
+def owned_rows(blocks, off: int, idx: torch.Tensor, group):
+    """Rows ``idx`` (global indices) of each tensor of ``blocks``, whose
+    rows [off, off + len) this rank holds (the same rows in each),
+    assembled over ``group`` with one all-reduce: each row has one owner
+    and every other rank adds zeros, so the rows are exact. No sync with
+    the host."""
+    held, n_idx = blocks[0].shape[0], idx.shape[0]
+    widths = [math.prod(x.shape[1:]) for x in blocks]
+    if held == 0:
+        part = blocks[0].new_zeros((n_idx, sum(widths)))
+    else:
+        loc = idx - off
+        own = ((loc >= 0) & (loc < held))[:, None]
+        at = loc.clamp(0, held - 1)
+        picked = [x.reshape(held, -1).index_select(0, at) for x in blocks]
+        rows = picked[0] if len(picked) == 1 else torch.cat(picked, dim=1)
+        part = torch.where(own, rows, torch.zeros((), dtype=rows.dtype,
+                                                  device=rows.device))
+    part = _all_reduce(part, group)
+    out, start = [], 0
+    for x, width in zip(blocks, widths):
+        out.append(part[:, start:start + width].reshape(
+            (n_idx,) + tuple(x.shape[1:])))
+        start += width
+    return tuple(out)
+
+
+def replicated_on(t: torch.Tensor, mesh: DeviceMesh) -> DTensor:
+    """``t``, the same on every rank, as a replicated DTensor on ``mesh``."""
+    return as_dtensor(t.contiguous(), mesh, [Replicate(), Replicate()],
+                      t.shape)
 
 
 def gathered(x) -> torch.Tensor:

@@ -41,6 +41,17 @@ def mulhilo32(a, b):
     return (p_hi >> 16) + (t >> 32), t & MASK32
 
 
+def mul32_wide(a, b):
+    """(hi, lo) 32-bit halves of the 64-bit product of two words (ints,
+    arrays or tensors), as ``mulhilo32``."""
+    return mulhilo32(u32(a), b if isinstance(b, int) else u32(b))
+
+
+def mul32_hi(a, b):
+    """The high word of the 64-bit product a * b (Philox's mulhi)."""
+    return mul32_wide(a, b)[0]
+
+
 def rotl32(x, r: int):
     """Rotate a word left by ``r`` bits (Threefry)."""
     r = int(r)
@@ -52,15 +63,9 @@ def to_signed(x):
     return x - ((x >> 31) << 32)
 
 
-def ctr_add_words(words, offset):
-    """Add a nonnegative int64 ``offset`` (< 2**63, scalar or tensor) to a
-    little-endian multiword counter given as Python ints, carrying across
-    every word (Random123 ``ctr.incr`` semantics, wrapping at the top).
-
-    Returns one int64 word tensor (or int) per counter word, broadcast to
-    the offset's shape."""
-    lo = offset & MASK32
-    hi = offset >> 32
+def _add_limbs(words, lo, hi):
+    """Little-endian multiword ``words`` + (lo, hi) << 0 and << 32, each
+    word masked to 32 bits and the carry passed up; wraps at the top."""
     out = []
     carry = 0
     for i, w in enumerate(words):
@@ -72,3 +77,25 @@ def ctr_add_words(words, offset):
         out.append(s & MASK32)
         carry = s >> 32
     return out
+
+
+def ctr_add_words(words, offset):
+    """Add a nonnegative int64 ``offset`` (< 2**63, scalar or tensor) to a
+    little-endian multiword counter given as Python ints, carrying across
+    every word (Random123 ``ctr.incr`` semantics, wrapping at the top).
+
+    Returns one int64 word tensor (or int) per counter word, broadcast to
+    the offset's shape."""
+    return _add_limbs(words, offset & MASK32, offset >> 32)
+
+
+def ctr_add64(ctr, lo, hi=0) -> torch.Tensor:
+    """Add the 64-bit amount given as words ``lo``, ``hi`` (ints or word
+    tensors) to the little-endian multiword counter ``ctr`` (words along
+    the last axis), carrying across every word and wrapping at the top (the
+    JAX package's ``ctr_add64``). Returns the word tensor, the counter's
+    words along the last axis broadcast against lo and hi."""
+    ctr = u32(ctr)
+    words = _add_limbs([ctr[..., i] for i in range(ctr.shape[-1])],
+                       u32(lo, ctr.device), u32(hi, ctr.device))
+    return torch.stack(torch.broadcast_tensors(*words), dim=-1)

@@ -16,12 +16,14 @@ from __future__ import annotations
 import dataclasses
 from typing import Tuple
 
-# generator name -> (counter words, key words)
+from . import philox, threefry
+
+# generator name -> (counter words, key words, generator, rounds)
 _GENERATORS = {
-    "philox4x32": (4, 2),
-    "philox2x32": (2, 1),
-    "threefry4x32": (4, 4),
-    "threefry2x32": (2, 2),
+    "philox4x32": (4, 2, philox.philox4x32, 10),
+    "philox2x32": (2, 1, philox.philox2x32, 10),
+    "threefry4x32": (4, 4, threefry.threefry4x32, 20),
+    "threefry2x32": (2, 2, threefry.threefry2x32, 20),
 }
 
 # 64-bit-counter generators (the reference's native-float64 streams,
@@ -29,12 +31,12 @@ _GENERATORS = {
 # Their words are stored as the little-endian uint32 limbs of the uint64
 # words (word i -> limbs 2i, 2i+1), so the multiword ``incr`` below is
 # Random123's ctr.incr over the uint64 words. name -> (counter limbs,
-# key limbs)
+# key limbs, None: no generator on a device, rounds)
 _GENERATORS_X64 = {
-    "philox4x64": (8, 4),
-    "philox2x64": (4, 2),
-    "threefry4x64": (8, 8),
-    "threefry2x64": (4, 4),
+    "philox4x64": (8, 4, None, 10),
+    "philox2x64": (4, 2, None, 10),
+    "threefry4x64": (8, 8, None, 20),
+    "threefry2x64": (4, 4, None, 20),
 }
 
 DEFAULT_RNG = "philox4x32"
@@ -42,8 +44,10 @@ DEFAULT_RNG_X64 = "philox4x64"
 
 
 def generator_info(name: str):
-    """(counter words, key words) of a generator; 32-bit words (limbs) for
-    the x64 generators."""
+    """(counter words, key words, generator function, default rounds) of a
+    generator, as the JAX package's; 32-bit words (limbs) and no function
+    for the x64 generators (the host engines of rng/x64.py and native.py
+    generate them)."""
     try:
         return _GENERATORS.get(name) or _GENERATORS_X64[name]
     except KeyError:
@@ -81,7 +85,7 @@ class RNGState:
     rng: str = DEFAULT_RNG
 
     def __post_init__(self):
-        len_c, len_k = generator_info(self.rng)
+        len_c, len_k = generator_info(self.rng)[:2]
         object.__setattr__(self, "counter",
                            _words(self.counter, len_c, "counter"))
         object.__setattr__(self, "key", _words(self.key, len_k, "key"))
@@ -92,7 +96,7 @@ class RNGState:
     def from_key(key_scalar: int = 0, rng: str = DEFAULT_RNG) -> "RNGState":
         """Counter all-zero; key word 0 = key_scalar, the rest zero. An x64
         generator's key word is 64-bit: two limbs."""
-        len_c, len_k = generator_info(rng)
+        len_c, len_k = generator_info(rng)[:2]
         key = [0] * len_k
         key[0] = int(key_scalar) & 0xFFFFFFFF
         if rng in _GENERATORS_X64:

@@ -112,3 +112,19 @@ def boxmul_pair(u_even, u_odd):
     ang = _c(_PI) * u
     r = torch.sqrt(_c(-2.0) * torch.log(u01(u_odd)))
     return torch.sin(ang) * r, torch.cos(ang) * r
+
+
+def boxmul_block(block):
+    """Box-Muller over the pairs of the last axis of a word block (...,
+    W), W even (r123ext::boxmulall): words 2i and 2i + 1 give normals 2i
+    and 2i + 1 (``boxmul_pair``). Returns float32 of the block's shape."""
+    w = block.shape[-1]
+    if w % 2:
+        raise ValueError("boxmul_block needs an even number of words")
+    x, y = boxmul_pair(block[..., 0::2], block[..., 1::2])
+    return torch.stack([x, y], dim=-1).reshape(block.shape)
+
+
+def uneg11_block(block):
+    """``uneg11`` over every word of a block (r123::uneg11all)."""
+    return uneg11(block)

@@ -11,6 +11,13 @@ with the d-point transforms along dim 0 (``torch.fft``). Each C_i is the
 library's sparse-sign operator with vec_nnz = 1, and each factor's sketch
 goes through ``sketch_general``, so on the card a Short CountSketch with
 d <= 4096 runs the SASO kernel K4. States chain across factors in order.
+
+Column-sharded factors (DTensors laid out [Replicate(), Shard(1)] over a
+mesh's 'data' axis; the JAX package takes them through XLA's sharding
+propagation): n is the Khatri–Rao batch axis and every stage of both
+sketches acts per column, so each rank runs the unsharded body on its own
+columns with no collective, and the sketch comes back as a DTensor laid out
+the same way.
 """
 
 from __future__ import annotations
@@ -20,7 +27,7 @@ from typing import Sequence, Tuple
 
 import torch
 
-from .base import MajorAxis, require
+from .base import MajorAxis, mesh_of, require
 from .ops.hadamard import hadamard_transform, next_pow2
 from .rng.state import RNGState
 from .skge import sketch_general
@@ -57,13 +64,29 @@ def _check_modes(x, mode_dims, d: int, what: str):
     return mode_dims
 
 
+def _by_columns(sketch, factors, d: int, state: RNGState, dtype, mesh):
+    """``sketch(factors, d, state, dtype=dtype)``, for factors of which one
+    or more is a DTensor on ``mesh``: the body on this rank's columns of
+    each factor (``data_chunk``: no collective for factors laid out
+    [Replicate(), Shard(1)]; a plain factor is taken as replicated), the
+    output a DTensor laid out [Replicate(), Shard(1)] on the mesh."""
+    from .parallel.distributed import data_chunk, data_sharded
+    local = [data_chunk(f, mesh, 1)[0] for f in factors]
+    out, nxt = sketch(local, d, state, dtype=dtype)
+    return data_sharded(out, mesh, 1, (d, factors[0].shape[1])), nxt
+
+
 def tensor_sketch(factors: Sequence[torch.Tensor], d: int, state: RNGState,
                   *, dtype=torch.float32) -> Tuple[torch.Tensor, RNGState]:
     """Sketch the Khatri–Rao product of ``factors`` ((m_i, n) tensors with a
     shared n) down to ``d`` rows, on the factors' device. Returns
     ``(out (d, n), next_state)``: a CountSketch of the product (unbiased,
-    <TS(x), TS(y)> ~= <x, y>). One factor is a plain CountSketch."""
+    <TS(x), TS(y)> ~= <x, y>). One factor is a plain CountSketch. The
+    factors may be column-sharded DTensors (module notes)."""
     _check_factors(factors, d, "tensor_sketch")
+    mesh = mesh_of(*factors)
+    if mesh is not None:
+        return _by_columns(tensor_sketch, factors, d, state, dtype, mesh)
     st = state
     spec = None
     for f in factors:
@@ -142,8 +165,12 @@ def kfjlt_sketch(factors: Sequence[torch.Tensor], d: int, state: RNGState,
     and Walsh–Hadamard H, R sampling d Kronecker rows iid (each coordinate
     per mode). A sampled row of the product is the elementwise product of
     the per-mode transformed rows, so the product domain is never formed.
-    Returns ``(out (d, n), next_state)``, the isometry scale included."""
+    Returns ``(out (d, n), next_state)``, the isometry scale included. The
+    factors may be column-sharded DTensors (module notes)."""
     _check_factors(factors, d, "kfjlt_sketch")
+    mesh = mesh_of(*factors)
+    if mesh is not None:
+        return _by_columns(kfjlt_sketch, factors, d, state, dtype, mesh)
     dims = tuple(f.shape[0] for f in factors)
     parts, nxt = _kfjlt_sample(dims, d, state, dtype, factors[0].device)
     out = None

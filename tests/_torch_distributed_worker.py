@@ -5,17 +5,20 @@
 
 Every rank joins a gloo group at tcp://ADDRESS, builds a 2 x 2 and a 1 x 4
 ('model', 'data') mesh over the same ranks and runs the cases of the JAX
-package's dryrun_multichip (1-9, 13, 14) through the public entry points
-with DTensor inputs, each against its oracle (float64 numpy, or the
-unsharded call), and the gradient, the rangefinder family,
-sketch-and-precondition and the host-contiguous multi-host mesh. It writes
+package's dryrun_multichip (1-14) through the public entry points with
+DTensor inputs, each against its oracle (float64 numpy, or the unsharded
+call), and the gradient, the rangefinder family, sketch-and-precondition,
+the tensor sketches of column-sharded factors and the host-contiguous
+multi-host mesh. It writes
 OUT_DIR/rank<RANK>.json: case name -> "ok" or the error.
 """
 
+import contextlib
 import json
 import os
 import sys
 import traceback
+import warnings
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
@@ -37,6 +40,15 @@ def _close(got, want, rtol=1e-5, atol=1e-5):
     got = got.full_tensor() if isinstance(got, DTensor) else got
     np.testing.assert_allclose(got.detach().numpy(), np.asarray(want),
                                rtol=rtol, atol=atol)
+
+
+@contextlib.contextmanager
+def quiet():
+    """Fail on a warning: the sharded paths run explicit collectives, and
+    DTensor warns where an operation falls back to its own propagation."""
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        yield
 
 
 def cases(mesh):
@@ -216,12 +228,130 @@ def cases(mesh):
             _close(x, x_ref.numpy(), rtol=1e-4, atol=1e-5)
             assert abs(it - it_ref) <= 2, (it, it_ref)
 
+    # -- the solver tier and the tensor sketches on sharded inputs (12b) --
+    def sgmres():
+        rng10 = np.random.default_rng(10)
+        n10 = 8 * data
+        a10 = torch.from_numpy((rng10.normal(size=(n10, n10)) / np.sqrt(n10)
+                                + 3 * np.eye(n10)).astype(np.float32))
+        b10 = torch.from_numpy(rng10.normal(size=n10).astype(np.float32))
+        st = rt.RNGState.from_key(10)
+        with quiet():
+            x10, _, nxt = tla.sgmres(by_rows(a10), b10, st, basis=n10)
+        x_ref, _, nxt_ref = tla.sgmres(a10, b10, st, basis=n10)
+        assert tuple(x10.placements) == (Replicate(), Replicate())
+        assert nxt.to_dict() == nxt_ref.to_dict()
+        _close(x10, x_ref.numpy(), rtol=1e-4, atol=1e-5)
+        x = x10.to_local().double().numpy()
+        rel = (np.linalg.norm(a10.double().numpy() @ x - b10.double().numpy())
+               / np.linalg.norm(b10.double().numpy()))
+        assert rel < 1e-4, rel
+
+    rng11 = np.random.default_rng(11)
+    m11, n11 = 16 * data, 6
+    a11 = torch.from_numpy(rng11.normal(size=(m11, n11)).astype(np.float32))
+    xt11 = rng11.normal(size=n11).astype(np.float32)
+    b11 = a11 @ torch.from_numpy(xt11)
+    n12 = 8 * data
+    m12 = 4 * n12
+    a12 = torch.from_numpy(rng11.normal(size=(m12, n12)).astype(np.float32))
+    b12 = torch.from_numpy(rng11.normal(size=m12).astype(np.float32))
+
+    def kaczmarz():
+        st = rt.RNGState.from_key(11)
+        with quiet():
+            x11, nxt = tla.block_kaczmarz(by_rows(a11), by_rows(b11), st,
+                                          block=8, steps=24)
+        x_ref, nxt_ref = tla.block_kaczmarz(a11, b11, st, block=8, steps=24)
+        assert tuple(x11.placements) == (Replicate(), Replicate())
+        assert nxt.to_dict() == nxt_ref.to_dict()
+        _close(x11, x_ref.numpy(), rtol=1e-4, atol=1e-5)
+        _close(x11, xt11, rtol=2e-3, atol=2e-3)
+
+    def gauss_seidel():
+        for sampling in ("shuffle", "colnorm"):
+            st = rt.RNGState.from_key(12)
+            with quiet():
+                x12, nxt = tla.block_gauss_seidel(by_cols(a12), b12, st,
+                                                  block=8, steps=40,
+                                                  sampling=sampling)
+            x_ref, nxt_ref = tla.block_gauss_seidel(a12, b12, st, block=8,
+                                                    steps=40,
+                                                    sampling=sampling)
+            assert tuple(x12.placements) == (Replicate(), Replicate())
+            assert nxt.to_dict() == nxt_ref.to_dict()
+            _close(x12, x_ref.numpy(), rtol=1e-4, atol=1e-5)
+
+    def ragged():
+        """Extents that 'data' does not divide: data + 1 rows of the
+        Kaczmarz system and columns of the Gauss-Seidel one, so on 1 x 4
+        the last rank holds none (DTensor's chunks 2, 2, 1, 0; its offset
+        6 clipped to 5)."""
+        rng = np.random.default_rng(13)
+        k = data + 1
+        a = torch.from_numpy(rng.normal(size=(k, 3)).astype(np.float32))
+        b = a @ torch.from_numpy(rng.normal(size=3).astype(np.float32))
+        st = rt.RNGState.from_key(13)
+        with quiet():
+            x, nxt = tla.block_kaczmarz(by_rows(a), by_rows(b), st, block=3,
+                                        steps=12)
+        x_ref, nxt_ref = tla.block_kaczmarz(a, b, st, block=3, steps=12)
+        assert nxt.to_dict() == nxt_ref.to_dict()
+        _close(x, x_ref.numpy(), rtol=1e-4, atol=1e-5)
+        a = torch.from_numpy(rng.normal(size=(4 * k, k)).astype(np.float32))
+        b = torch.from_numpy(rng.normal(size=4 * k).astype(np.float32))
+        for sampling in ("shuffle", "colnorm"):
+            with quiet():
+                x, nxt = tla.block_gauss_seidel(by_cols(a), b, st, block=3,
+                                                steps=20, sampling=sampling)
+            x_ref, nxt_ref = tla.block_gauss_seidel(a, b, st, block=3,
+                                                    steps=20,
+                                                    sampling=sampling)
+            assert nxt.to_dict() == nxt_ref.to_dict()
+            _close(x, x_ref.numpy(), rtol=1e-4, atol=1e-5)
+
+    def column_sharded(sketch, seed, dims, key, exact):
+        """The sketch of column-sharded factors against the unsharded
+        call, and the same next_state (test_distributed.py's
+        zero-communication tests): bitwise where ``exact``, else within
+        1e-6 of max |want|."""
+        rng = np.random.default_rng(seed)
+        mats = [torch.from_numpy(rng.normal(size=(m, 16)).astype(np.float32))
+                for m in dims]
+        st = rt.RNGState.from_key(key)
+        want, nxt = sketch(mats, 64, st)
+        with quiet():
+            got, nxt2 = sketch([by_cols(a) for a in mats], 64, st)
+        assert tuple(got.placements) == (Replicate(), Shard(1))
+        assert nxt2.to_dict() == nxt.to_dict()
+        got, want = got.full_tensor().numpy(), want.numpy()
+        if exact:
+            np.testing.assert_array_equal(got, want)
+        else:
+            scale = np.abs(want).max()
+            np.testing.assert_allclose(got / scale, want / scale, rtol=0,
+                                       atol=1e-6)
+
+    def tensor_sketch():
+        # not bitwise on the CPU: PyTorch's complex64 product of the
+        # spectra rounds an element in a vector lane and in the scalar tail
+        # differently (2.98e-8 apart at 4 of 16 columns), so its bits
+        # depend on where the element lies in the local block
+        column_sharded(rt.tensor_sketch, 9, (48, 32), 11, exact=False)
+
+    def kfjlt():
+        column_sharded(rt.kfjlt_sketch, 10, (48, 20), 12, exact=True)
+
     return [("left", left), ("right", right), ("sparse", sparse),
             ("cols", cols), ("sparse_data", sparse_data),
             ("pad_and_shard", pad_and_shard), ("srht_cols", srht_cols),
             ("gradient", gradient), ("rsvd", rsvd),
             ("rangefinder_qb", rangefinder_qb), ("krylov", krylov),
-            ("fd", fd), ("ihs", ihs), ("precondition", precondition)]
+            ("fd", fd), ("ihs", ihs), ("precondition", precondition),
+            ("sgmres", sgmres), ("kaczmarz", kaczmarz),
+            ("gauss_seidel", gauss_seidel), ("ragged", ragged),
+            ("tensor_sketch", tensor_sketch),
+            ("kfjlt", kfjlt)]
 
 
 def multihost():

@@ -7,7 +7,10 @@ function of (mesh coordinate, mesh shape, local blocks, operator); these
 tests run every shard of the (1, 1), (1, 4), (2, 2) and (4, 1) meshes in
 turn, add the partials over 'data' in rank order (what the all-reduce
 does) and assemble the blocks over 'model'. Same numpy inputs and seeds as
-tests/test_distributed.py (D, M, N = 16, 64, 8).
+tests/test_distributed.py (D, M, N = 16, 64, 8). Its four update scenarios
+(a sketch grown in d or in m, left and right, from chained states) run on
+the 2 x 4, 2 x 2, 1 x 4 and 4 x 1 meshes, with its tolerances (1e-6 where
+the blocks stack, 1e-5 where the partials add).
 
 Tolerances, normalised by max |want|:
 - operator tiles: bitwise (a sketch of the identity assembles to the
@@ -396,6 +399,134 @@ def test_gradient(layout, use_fused):
     with rt.flags(use_fused=use_fused):
         (rt.sketch_general(tS, a1, **single) ** 2).sum().backward()
     _close(a.grad, a1.grad, FUSED_TOL if use_fused else STAGED_TOL)
+
+
+@pytest.mark.parametrize("parts", [1, 3, 4])
+def test_owned_rows_assemble_exactly(parts):
+    """The panels of the sharded solvers: each rank's rows of a tensor in
+    DTensor chunks (the last ones shorter or empty), every rank's part of
+    the gathered rows added in rank order, are the rows themselves, bit
+    for bit (phantom index -1 gives zeros); two tensors go in one part."""
+    a = torch.from_numpy(_data((10, 5), 7))
+    b = torch.from_numpy(_data((10,), 8))
+    idx = torch.tensor([9, 0, 3, 3, -1, 7, 4])
+    per = td._shard_extent(10, parts)
+    acc_a = acc_b = 0
+    for di in range(parts):
+        off, ext = td.shard_span(10, per, di)
+        pa, pb = td.owned_rows((a[off:off + ext], b[off:off + ext]), off,
+                               idx, None)
+        acc_a, acc_b = acc_a + pa, acc_b + pb
+    keep = (idx >= 0)[:, None]
+    assert torch.equal(acc_a, torch.where(keep, a[idx.clamp(0)], 0.0))
+    assert torch.equal(acc_b, torch.where(keep[:, 0], b[idx.clamp(0)], 0.0))
+
+
+UPDATE_MESHES = [(2, 4), (2, 2), (1, 4), (4, 1)]
+
+
+def _chained(shapes, major, key):
+    """([JAX operators], [port operators]) of ``shapes``, Gaussian with
+    ``major``: each but the last from the one before's next_state, the
+    first and the last (the one-shot operator) from ``key``."""
+    j, t = [], []
+    js, ts = rb.RNGState.from_key(key), rt.RNGState.from_key(key)
+    for i, shape in enumerate(shapes):
+        if i == len(shapes) - 1:
+            js, ts = rb.RNGState.from_key(key), rt.RNGState.from_key(key)
+        j.append(rb.DenseSkOp(rb.DenseDist(*shape, rb.DenseDistName.Gaussian,
+                                           rb.MajorAxis[major]), js))
+        t.append(rt.DenseSkOp(rt.DenseDist(*shape, rt.DenseDistName.Gaussian,
+                                           rt.MajorAxis[major]), ts))
+        js, ts = j[-1].next_state, t[-1].next_state
+    return j, t
+
+
+def _update_close(got, want, tol):
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=tol, atol=tol)
+
+
+def _jleft(S, A, shape):
+    return np.asarray(jpar.distributed_sketch(S, jnp.asarray(A),
+                                              _jmesh(shape)))
+
+
+def _jright(S, A, shape):
+    return np.asarray(jpar.distributed_sketch_right(S, jnp.asarray(A),
+                                                    _jmesh(shape)))
+
+
+@pytest.mark.parametrize("shape", UPDATE_MESHES)
+def test_update_scenario_1_grow_d(shape):
+    """tests/test_distributed.py's scenario 1: a second sketch of more rows
+    from S1's next_state stacks into the one-shot sketch of d1 + d2 rows
+    (1e-6, the JAX test's); the one-shot and the stacked sketches against
+    the JAX package's on the same mesh (1e-5)."""
+    m, n, d1, d2 = 32, 6, 8, 12
+    A = torch.from_numpy(_data((m, n), 0))
+    (j1, j2, j), (S1, S2, S) = _chained([(d1, m), (d2, m), (d1 + d2, m)],
+                                        "Long", 51)
+    one_shot = left(S, A, shape)
+    two_step = torch.cat([left(S1, A, shape), left(S2, A, shape)])
+    _update_close(two_step, one_shot, 1e-6)
+    _close(one_shot, _jleft(j, A, shape), STAGED_TOL)
+    _close(two_step, np.vstack([_jleft(j1, A, shape), _jleft(j2, A, shape)]),
+           STAGED_TOL)
+
+
+@pytest.mark.parametrize("shape", UPDATE_MESHES)
+def test_update_scenario_2_grow_m(shape):
+    """Scenario 2: sketches of new rows of A from the chained state add up
+    to the one-shot sketch of the stacked A (1e-5); both against the JAX
+    package's (1e-5)."""
+    d, n, m1, m2 = 8, 6, 32, 24
+    rng = np.random.default_rng(1)
+    A1 = torch.from_numpy(rng.normal(size=(m1, n)).astype(np.float32))
+    A2 = torch.from_numpy(rng.normal(size=(m2, n)).astype(np.float32))
+    (j1, j2, j), (S1, S2, S) = _chained([(d, m1), (d, m2), (d, m1 + m2)],
+                                        "Short", 52)
+    one_shot = left(S, torch.cat([A1, A2]), shape)
+    summed = left(S1, A1, shape) + left(S2, A2, shape)
+    _update_close(summed, one_shot, 1e-5)
+    _close(one_shot, _jleft(j, torch.cat([A1, A2]), shape), STAGED_TOL)
+    _close(summed, _jleft(j1, A1, shape) + _jleft(j2, A2, shape),
+           STAGED_TOL)
+
+
+@pytest.mark.parametrize("shape", UPDATE_MESHES)
+def test_update_scenario_3_grow_d_right(shape):
+    """Scenario 3: scenario 1 on the right, the columns stacked (1e-6);
+    both against the JAX package's (1e-5)."""
+    n, rows, d1, d2 = 32, 5, 8, 12
+    A = torch.from_numpy(np.random.default_rng(2).normal(
+        size=(rows, n)).astype(np.float32))
+    (j1, j2, j), (S1, S2, S) = _chained([(n, d1), (n, d2), (n, d1 + d2)],
+                                        "Long", 53)
+    one_shot = right(S, A, shape)
+    two_step = torch.cat([right(S1, A, shape), right(S2, A, shape)], dim=1)
+    _update_close(two_step, one_shot, 1e-6)
+    _close(one_shot, _jright(j, A, shape), STAGED_TOL)
+    _close(two_step, np.hstack([_jright(j1, A, shape),
+                                _jright(j2, A, shape)]), STAGED_TOL)
+
+
+@pytest.mark.parametrize("shape", UPDATE_MESHES)
+def test_update_scenario_4_new_data_right(shape):
+    """Scenario 4: scenario 2 on the right, new columns of A (1e-5); both
+    against the JAX package's (1e-5)."""
+    d, rows, n1, n2 = 8, 5, 32, 24
+    rng = np.random.default_rng(3)
+    A1 = torch.from_numpy(rng.normal(size=(rows, n1)).astype(np.float32))
+    A2 = torch.from_numpy(rng.normal(size=(rows, n2)).astype(np.float32))
+    (j1, j2, j), (S1, S2, S) = _chained([(n1, d), (n2, d), (n1 + n2, d)],
+                                        "Short", 54)
+    one_shot = right(S, torch.cat([A1, A2], dim=1), shape)
+    summed = right(S1, A1, shape) + right(S2, A2, shape)
+    _update_close(summed, one_shot, 1e-5)
+    _close(one_shot, _jright(j, torch.cat([A1, A2], dim=1), shape),
+           STAGED_TOL)
+    _close(summed, _jright(j1, A1, shape) + _jright(j2, A2, shape),
+           STAGED_TOL)
 
 
 def test_x64_seeds_raise_as_in_the_jax_package():

@@ -3,17 +3,27 @@
 One module-scoped group of four OS processes (tests/_torch_distributed_worker.py,
 which imports torch and the port only, one thread a rank) runs, on a 2 x 2
 and a 1 x 4 ('model', 'data') DeviceMesh over the same ranks, the cases of
-the JAX package's ``dryrun_multichip`` other than 10-12 (the solver tier on
-sharded data, ROADMAP item 12b) with its shapes and oracles, through the
-public entry points with DTensor inputs: the five sketches and
+the JAX package's ``dryrun_multichip`` with its shapes and oracles, through
+the public entry points with DTensor inputs: the five sketches and
 pad-and-shard against the float64 product (1e-5; SRHT 1e-4), the gradient
 of sum(B^2) in the three layouts, the rangefinder, QB, rSVD (the planted
 spectrum to 1e-4), the block Krylov rangefinder (basis width 3, residual <
 1e-4), Frequent Directions (its certificate), ``ihs_lsq(mesh=)`` (equal to
 the unsharded run to 1e-4) and ``sketch_and_precondition(mesh=)`` (1e-4,
-CGLS iterations within 2); and a host-contiguous multi-host mesh of two
-"hosts" (LOCAL_WORLD_SIZE=2). Each case is one test, which reads what all
-four ranks wrote.
+CGLS iterations within 2); the solver tier on sharded inputs, cases 10-12:
+``sgmres`` on a row-sharded A (the unsharded run to rtol 1e-4, atol 1e-5, a
+true residual below 1e-4), ``block_kaczmarz`` on a row-sharded system and
+``block_gauss_seidel`` ('shuffle' and 'colnorm') on a column-sharded one
+(the unsharded run to rtol 1e-4, atol 1e-5; Kaczmarz and 'colnorm' are
+bitwise on this CPU, not asserted, while 'shuffle' sums the residual
+update over the ranks), both again at extents that 'data' does not divide,
+so that on 1 x 4 one rank holds no rows or columns; ``tensor_sketch`` and ``kfjlt_sketch`` of column-sharded factors
+against the unsharded call (test_distributed.py's zero-communication tests:
+KFJLT bitwise, TensorSketch within 1e-6 of max |want|, the reason beside the
+case), each with the unsharded ``next_state`` and with no warning (no
+operation falls back to DTensor's own propagation); and a host-contiguous
+multi-host mesh of two "hosts" (LOCAL_WORLD_SIZE=2). Each case is one test,
+which reads what all four ranks wrote.
 """
 
 import json
@@ -28,7 +38,8 @@ import pytest
 WORLD = 4
 CASES = ("left", "right", "sparse", "cols", "sparse_data", "pad_and_shard",
          "srht_cols", "gradient", "rsvd", "rangefinder_qb", "krylov", "fd",
-         "ihs", "precondition")
+         "ihs", "precondition", "sgmres", "kaczmarz", "gauss_seidel",
+         "ragged", "tensor_sketch", "kfjlt")
 NAMES = [f"{c}[{mesh}]" for mesh in ("2x2", "1x4") for c in CASES] \
     + ["multihost"]
 TIMEOUT = 240   # seconds a rank may take; the group takes about 10

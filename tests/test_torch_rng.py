@@ -136,8 +136,8 @@ def test_x64_generators_are_not_ported_yet():
         jstate = jrng.RNGState.from_key(2 ** 40 + 9, name)
         tstate = trng.RNGState.from_key(2 ** 40 + 9, name)
         assert tstate.is_x64 and tstate.to_dict() == jstate.to_dict()
-        assert trng.state.generator_info(name) == (tstate.len_c,
-                                                   tstate.len_k)
+        assert trng.state.generator_info(name)[:2] == (tstate.len_c,
+                                                       tstate.len_k)
     with pytest.raises(ValueError):
         trng.RNGState.from_key(0, "nosuchrng")
 
@@ -176,3 +176,88 @@ def test_gaussian_transforms_match_jax(variant):
     for g, w in zip(got, want):
         np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=2e-3,
                                    atol=2e-3)
+
+
+def test_rng_exports_cover_the_jax_package():
+    assert set(jrng.__all__) <= set(trng.__all__)
+    assert all(callable(getattr(trng, n)) or n == "DEFAULT_RNG"
+               for n in trng.__all__)
+
+
+def test_generator_info_matches_jax():
+    for name in ("philox4x32", "philox2x32", "threefry4x32", "threefry2x32",
+                 "philox4x64", "philox2x64", "threefry4x64",
+                 "threefry2x64"):
+        len_c, len_k, fn, rounds = trng.generator_info(name)
+        jlen_c, jlen_k, jfn, jrounds = jrng.generator_info(name)
+        assert (len_c, len_k, rounds) == (jlen_c, jlen_k, jrounds)
+        assert (fn is None) == (jfn is None)
+        assert fn is None or fn is getattr(trng, jfn.__name__)
+    with pytest.raises(ValueError):
+        trng.generator_info("nosuchrng")
+
+
+def test_mul32_wide_and_hi_match_jax_bitwise():
+    rng = np.random.default_rng(4)
+    a = np.concatenate([_random_words(rng, (2048,)),
+                        np.array([0, 1, 0xFFFF, 0x10000, 2 ** 32 - 1],
+                                 np.uint32)])
+    b = np.concatenate([_random_words(rng, (2048,)),
+                        np.array([2 ** 32 - 1, 0, 0xFFFF, 0x10000,
+                                  2 ** 32 - 1], np.uint32)])
+    hi, lo = trng.mul32_wide(a, b)
+    jhi, jlo = jrng.mul32_wide(a, b)
+    np.testing.assert_array_equal(hi.numpy(), np.asarray(jhi, np.int64))
+    np.testing.assert_array_equal(lo.numpy(), np.asarray(jlo, np.int64))
+    np.testing.assert_array_equal(trng.mul32_hi(_t(a), _t(b)).numpy(),
+                                  np.asarray(jrng.mul32_hi(a, b), np.int64))
+    # a Python-int multiplier, as Philox's
+    np.testing.assert_array_equal(
+        trng.mul32_hi(a, 0xD2511F53).numpy(),
+        np.asarray(jrng.mul32_hi(a, np.uint32(0xD2511F53)), np.int64))
+
+
+@pytest.mark.parametrize("width", [2, 4])
+def test_ctr_add64_matches_jax_bitwise(width):
+    rng = np.random.default_rng(5 + width)
+    ctr = _random_words(rng, (width,))
+    ctr[0] = 2 ** 32 - 3                     # a carry out of word 0
+    lo = np.concatenate([_random_words(rng, (64,)),
+                         np.array([0, 2, 3, 2 ** 32 - 1], np.uint32)])
+    hi = np.concatenate([_random_words(rng, (64,)),
+                         np.array([0, 0, 2 ** 32 - 1, 2 ** 32 - 1],
+                                  np.uint32)])
+    got = trng.ctr_add64(ctr, _t(lo), _t(hi))
+    want = np.asarray(jrng.ctr_add64(jnp.asarray(ctr), jnp.asarray(lo),
+                                     jnp.asarray(hi)))
+    assert got.shape == want.shape == (lo.shape[0], width)
+    np.testing.assert_array_equal(got.numpy(), want.astype(np.int64))
+    top = np.full(width, 2 ** 32 - 1, np.uint32)   # wraps at the top word
+    np.testing.assert_array_equal(
+        trng.ctr_add64(top, 1).numpy(),
+        np.asarray(jrng.ctr_add64(jnp.asarray(top), 1)).astype(np.int64))
+
+
+def test_uneg11_block_matches_jax_bitwise():
+    rng = np.random.default_rng(6)
+    block = _random_words(rng, (64, 4))
+    np.testing.assert_array_equal(trng.uneg11_block(_t(block)).numpy(),
+                                  np.asarray(jrng.uneg11_block(block)))
+
+
+def test_boxmul_block_pairs_the_words():
+    """Pairs (2i, 2i + 1) of each block row: bitwise the port's
+    boxmul_pair; against JAX within 2e-3, as boxmul_pair is held
+    (log/sin/cos differ across float32 math libraries)."""
+    rng = np.random.default_rng(7)
+    block = _random_words(rng, (64, 4))
+    got = trng.boxmul_block(_t(block))
+    assert got.shape == (64, 4) and got.dtype == torch.float32
+    for i in range(2):
+        x, y = ttr.boxmul_pair(_t(block[:, 2 * i]), _t(block[:, 2 * i + 1]))
+        assert torch.equal(got[:, 2 * i], x)
+        assert torch.equal(got[:, 2 * i + 1], y)
+    np.testing.assert_allclose(got.numpy(), np.asarray(jrng.boxmul_block(
+        block)), rtol=2e-3, atol=2e-3)
+    with pytest.raises(ValueError):
+        trng.boxmul_block(_t(block[:, :3]))

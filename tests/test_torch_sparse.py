@@ -360,6 +360,7 @@ def test_every_port_module_imports_with_jax_blocked():
         "features", "leverage", "trace", "nystrom", "eigh", "rpcholesky",
         "amm", "qrcp", "krylov", "sgmres", "spectral", "rgs", "streaming",
         "quadrature", "density", "kaczmarz", "tt", "tucker")} <= names
-    # and the distributed layer
+    # and the distributed layer and the profiling module
     assert {"randblas_tpu_torch.parallel.distributed",
-            "randblas_tpu_torch.parallel.multihost"} <= names
+            "randblas_tpu_torch.parallel.multihost",
+            "randblas_tpu_torch.profiling"} <= names
