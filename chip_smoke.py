@@ -65,9 +65,10 @@ made on the card from ``--seed``, default 0):
   ``torch.svd_lowrank``; and ``linalg.cholqr`` of the rangefinder's sketch
   with TF32 allowed by the caller;
 - (j) ``linalg.sketch_and_precondition`` of a 131072 x 2048 system of
-  condition ~1e3 at d = 4096, 'saso' (the Fisher–Yates fill, K4 twice: A
-  and b) and 'gaussian' (K1 twice), against float64 ``torch.linalg.lstsq``,
-  beside float32 ``torch.linalg.lstsq``;
+  condition ~1e3 at d = 4096, 'saso' (the Fisher–Yates fill, K4 once for
+  A, the fixed-nnz route for b) and 'gaussian' (K1 once for A, the staged
+  route for b: K3 once), against float64 ``torch.linalg.lstsq``, beside
+  float32 ``torch.linalg.lstsq``;
 - (k) ``linalg.sketched_tls`` of run_all.py config 1 in float64
   (``DenseDist(4002, 100000)``, [A b] 100000 x 2001): the staged route, K3
   once, against exact TLS from the Gram's eigenvectors;
@@ -174,6 +175,17 @@ sgmres's true residual below 1e-4; the tensor sketches bitwise), with the
 same next_state, timed by ``randblas_tpu_torch.profiling.time_op`` beside
 the unsharded call.
 
+Phase 13 checks the H100 dispatch gates (``gate_sweep.py``'s boundaries):
+at the grid points nearest each side of each boundary of K1, K2, the
+left-Trans and right routes, K4, K5, the COO model and the SRHT's stage
+cap, the route "auto" takes on the card (launch counts and routes) is the
+gate's decision and its result is within the bound of the forced other
+route, both timed; the main path once more (K1 once); and config 4b plus
+one full row (slot width 136) through ``left_spmm`` on the COO route, no
+table built, within 1e-6 of the plain float32 product. The K1/K2 edge cases of
+phases 4 and 5 and the square distribution's forward pass run under
+``use_fused=True``, since "auto" takes the staged route at their shapes.
+
 For K1 and K2 it also prints the launch plan
 of the main path and of (b) (tiles, thread-block cluster, grid, contraction
 splits, how many times the operator is generated, and the card's
@@ -233,6 +245,10 @@ K5_REL_TOL = 1e-6     # K5 vs its plain version: the same products (exact in
                       # float32) summed in the same order; expected bitwise
 COO_REL_TOL = 1e-4    # two float32 products of 20000-term sums in other
                       # orders (index_put_ accumulates with atomics)
+HEAVY_ROW_TOL = 1e-6  # (13) config 4b plus a full row through the COO
+                      # route vs the plain float32 product of the densified
+                      # data: the same product, repeated entries summed in
+                      # another order
 SRHT_REL_TOL = 2e-5   # (h) SRHT vs the explicit operator's float32 product:
                       # 65536-term sums of +-a in other orders (two stages
                       # of 256 against one long dot product)
@@ -983,9 +999,13 @@ def linalg_paths(rt, dev, drive, card, seed):
     bj = Aj @ randn(nj) + 1e-3 * randn(mj)
     x64 = torch.linalg.lstsq(Aj.double(), bj.double()[:, None]).solution[:, 0]
     st_j = rt.RNGState.from_key(seed + 13)
+    # A through the kernels; b (one column) through the routes the gates
+    # give a vector: the fixed-nnz route (d m = 2^29) and the staged one
     for op, expect, route in (
-            ("saso", {"K4": 2}, {"sparse_saso_kernel": 2}),
-            ("gaussian", {"K1": 2}, {"left_fused": 2})):
+            ("saso", {"K4": 1},
+             {"sparse_saso_kernel": 1, "sparse_fixed_nnz": 1}),
+            ("gaussian", {"K1": 1, "K3": 1},
+             {"left_fused": 1, "left_staged": 1})):
         (x, iters, _), _ = drive(
             f"(j) sketch_and_precondition, {op}",
             lambda: la.sketch_and_precondition(Aj, bj, st_j, operator=op),
@@ -2899,6 +2919,256 @@ def sharded_input_paths(rt, dev, drive, card, seed, mesh):
           "checks and timings included)")
 
 
+def gate_paths(rt, dev, drive, card, main_call):
+    """Phase 13: the H100 dispatch gates (gate_sweep.py; PERF.md "H100
+    gates"). At the grid points nearest each side of each boundary, the
+    route "auto" takes (launch counts, routes) is the gate's decision, the
+    result is within the bound of the route it stands in for (the forced
+    other route), and both routes are timed. Then the main path once more
+    (K1 1), and config 4b plus one full row through ``left_spmm`` on the
+    COO route (no table built) against the plain product."""
+    import importlib
+    from randblas_tpu_torch import skge
+    from randblas_tpu_torch.ops import coo_apply, hadamard
+    spmm = importlib.import_module("randblas_tpu_torch.sparse_data.spmm")
+    t_phase = time.perf_counter()
+    print("phase 13: the H100 gates, the route under \"auto\" on each side "
+          "of each boundary against the forced other route")
+    gen = torch.Generator(device=dev).manual_seed(13)
+
+    def randn(*shape, dtype=torch.float32):
+        return torch.randn(*shape, generator=gen, device=dev).to(dtype)
+
+    def point(name, call, expect, routes, forced, tol, decided):
+        """``call`` under "auto" launches ``expect`` and takes ``routes``
+        (None: no route count), as the gate ``decided``; under ``forced``
+        it takes the other route; both within ``tol`` and timed."""
+        got, _ = drive(f"(13) {name}", call, expect)
+        if routes is not None:
+            check(dict(skge.route_counts) == routes,
+                  f"(13) {name}: routes {dict(skge.route_counts)}")
+        with rt.flags(**forced):
+            want = call()
+        err = rel_err(got, want)
+        check(err <= tol, f"(13) {name}: vs the forced route {err}")
+        auto_ms = time_ms(call)
+        with rt.flags(**forced):
+            forced_ms = time_ms(call)
+        print(f"(13) {name}: gate {decided}; auto {auto_ms:.3f} ms, forced "
+              f"{forced} {forced_ms:.3f} ms; normalised difference "
+              f"{err:.3g} <= {tol} [{card}]")
+
+    def dense(name, dims, data, kw, kernel, route, dtype=torch.float32,
+              major="Long"):
+        S = rt.DenseSkOp(rt.DenseDist(*dims, rt.DenseDistName.Gaussian,
+                                      rt.MajorAxis[major]),
+                         rt.RNGState.from_key(130))
+        side_right = kw.get("side") == "right"
+        rows, cont = (dims[1], dims[0]) if (side_right or "op_s" in kw) \
+            else dims
+        n = data.shape[0] if side_right else data.shape[1]
+        take = skge.fused_profitable(rows, cont, n, dtype)
+        check(take == (kernel is not None), f"(13) {name}: the gate says "
+              f"{take}")
+        expect = {kernel: 1} if kernel else {"K3": 1}
+        staged = "right_staged" if side_right else "left_staged"
+        point(name, lambda: rt.sketch_general(S, data, **kw), expect,
+              {route if kernel else staged: 1},
+              {"use_fused": not kernel}, STAGED_REL_TOL,
+              f"fused_profitable({rows}, {cont}, {n}, {str(dtype)[6:]}) = "
+              f"{take}")
+
+    # K1 / K2: each rule of fused_profitable from both sides
+    A = randn(65536, 2048)
+    dense("K1 n=1024, 2048 rows (cluster 4)", (2048, 65536),
+          A[:, :1024].contiguous(), {}, "K1", "left_fused")
+    dense("K1 n=1024, 1024 rows (cluster 4)", (1024, 65536),
+          A[:, :1024].contiguous(), {}, None, None)
+    dense("K1 2^31 operations", (64, 8192), A[:8192].contiguous(), {}, None,
+          None)
+    dense("K1 past 2^31 operations", (64, 65536), A, {}, "K1", "left_fused")
+    dense("K1 n=256, 16384 rows (cluster 1)", (16384, 8192),
+          A[:8192, :256].contiguous(), {}, "K1", "left_fused", major="Short")
+    dense("K1 n=64, 16384 rows", (16384, 8192), A[:8192, :64].contiguous(),
+          {}, None, None, major="Short")
+    dense("K2 n=512, 8192 rows (cluster 2)", (8192, 1024),
+          A[:1024, :512].contiguous(), {}, "K2", "left_colmajor_fused")
+    dense("K2 n=512, 2048 rows (cluster 2)", (2048, 1024),
+          A[:1024, :512].contiguous(), {}, None, None)
+    Y = A[:32768]
+    dense("left-Trans, n=2048", (32768, 1024), Y.contiguous(), {"op_s": "T"},
+          "K1", "left_trans_fused")
+    dense("left-Trans, n=1024", (32768, 1024), Y[:, :1024].contiguous(),
+          {"op_s": "T"}, None, None)
+    dense("right, 2048 data rows", (32768, 1024), Y.T.contiguous(),
+          {"side": "right"}, "K1", "right_fused")
+    dense("right, 1024 data rows", (32768, 1024),
+          Y[:, :1024].T.contiguous(), {"side": "right"}, None, None)
+    del A, Y
+    A = randn(65536, 4096)
+    dense("bf16 data at the main shape", (1024, 65536),
+          A.to(torch.bfloat16), {}, None, None, dtype=torch.bfloat16)
+    B, _ = drive("(13) the main path once more", main_call(A), {"K1": 1})
+    check(skge.route_counts == {"left_fused": 1},
+          f"(13) main path routes {dict(skge.route_counts)}")
+    del A, B
+    torch.cuda.empty_cache()
+
+    # K4: d = 4096, m = 262144 at n = 16 (fixed-nnz) and 128 (K4)
+    A = randn(262144, 128)
+    S = rt.SparseSkOp(rt.SparseDist(4096, 262144, 8),
+                      rt.RNGState.from_key(131)).filled(dev)
+    for n, kernel in ((16, False), (128, True)):
+        check(skge.saso_profitable(4096, 262144, n) == kernel,
+              f"(13) K4 gate at n={n}")
+        An = A[:, :n].contiguous()
+        point(f"K4 d=4096 m=262144 n={n}", lambda: rt.sketch_general(S, An),
+              {"K4": 1} if kernel else {},
+              {"sparse_saso_kernel" if kernel else "sparse_fixed_nnz": 1},
+              {"use_saso_kernel": not kernel}, STAGED_REL_TOL,
+              f"saso_profitable(4096, 262144, {n}) = {kernel}")
+    del A, S, An
+    torch.cuda.empty_cache()
+
+    # K5: config 4b with a heavy row 0 of 24 entries in each 128-column
+    # block (bw 32) at n = 8 (K5) and 1 (COO), and with one full row (bw
+    # 136: COO, no table built)
+    rng = np.random.default_rng(3)
+    r4, c4 = rng.integers(0, R4, NNZ4), rng.integers(0, C4, NNZ4)
+    v4 = rng.normal(size=NNZ4).astype(np.float32)
+    run = np.concatenate([np.arange(b, min(b + 24, C4))
+                          for b in range(0, C4, 128)])
+    coo = rt.COOMatrix.from_arrays(
+        R4, C4, np.concatenate([r4, np.zeros_like(run)]),
+        np.concatenate([c4, run]),
+        np.concatenate([v4, rng.normal(size=run.size).astype(np.float32)]),
+        device=dev)
+    B = randn(C4, 512)
+    for n, kernel in ((8, True), (1, False)):
+        check(spmm.blocked_ell_profitable(n, 32) == kernel,
+              f"(13) K5 gate at n={n}")
+        Bn = B[:, :n].contiguous()
+        point(f"K5 config 4b, bw 32, n={n}", lambda: rt.left_spmm(coo, Bn),
+              {"K5": 1} if kernel else {}, None,
+              {"auto_blocked_ell": not kernel}, STAGED_REL_TOL,
+              f"blocked_ell_profitable({n}, bw 32) = {kernel}")
+    check(coo._bell_bw == 32, f"(13) bw {coo._bell_bw}, expected 32")
+    heavy = rt.COOMatrix.from_arrays(
+        R4, C4, np.concatenate([r4, np.full(C4, 7)]),
+        np.concatenate([c4, np.arange(C4)]),
+        np.concatenate([v4, rng.normal(size=C4).astype(np.float32)]),
+        device=dev)
+    t0 = time.perf_counter()
+    declined = spmm._blocked_ell_or_none(heavy, B) is None
+    gate_s = time.perf_counter() - t0
+    check(declined and heavy._bell_bw == 136
+          and getattr(heavy, "_bell_cache", None) is None,
+          f"(13) heavy row: bw {heavy._bell_bw}, declined {declined}")
+    got, _ = drive("(13) config 4b plus one full row, left_spmm",
+                   lambda: rt.left_spmm(heavy, B), {})
+    check(getattr(heavy, "_bell_cache", None) is None,
+          "(13) heavy row: a table was built")
+    dense_h = heavy.to_dense()
+    err = rel_err(got, dense_h @ B)
+    check(err <= HEAVY_ROW_TOL, f"(13) heavy row vs the plain product: {err}")
+    err64 = rel_err(got, dense_h.double() @ B.double())
+    check(err64 <= COO_REL_TOL, f"(13) heavy row vs float64: {err64}")
+    coo_ms = time_ms(lambda: rt.left_spmm(heavy, B))
+    t0 = time.perf_counter()
+    with rt.flags(auto_blocked_ell=True):
+        rt.left_spmm(heavy, B)
+        torch.cuda.synchronize()
+        conv_s = time.perf_counter() - t0
+        k5_ms = time_ms(lambda: rt.left_spmm(heavy, B))
+    bell = heavy._bell_cache
+    print(f"(13) config 4b plus one full row (bw {heavy._bell_bw}): the gate "
+          f"declined in {gate_s:.3f} s, no table built; the COO route "
+          f"{coo_ms:.3f} ms, vs the plain float32 product {err:.3g} <= "
+          f"{HEAVY_ROW_TOL}, vs float64 {err64:.3g} <= {COO_REL_TOL}; "
+          f"forced K5: conversion {conv_s:.2f} s, tables "
+          f"{(bell.local_cols.numel() + bell.vals.numel()) * 4 / 2**30:.2f} "
+          f"GiB, {k5_ms:.3f} ms a call [{card}]")
+    del coo, heavy, bell, B, dense_h, got
+    torch.cuda.empty_cache()
+
+    # the COO model: 2^20 entries on n = 16 at d = 512 (densify) and 4096
+    # (gather), m = 65536
+    real = {f: getattr(coo_apply, f) for f in ("coo_left_apply",
+                                               "coo_left_apply_dense")}
+    calls = []
+
+    def counted(f):
+        def run(*args, **kwargs):
+            calls.append(f)
+            return real[f](*args, **kwargs)
+        return run
+    B = randn(65536, 16)
+    for d, dense_route in ((512, True), (4096, False)):
+        r = torch.randint(0, d, (1 << 20,), generator=gen, device=dev)
+        c = torch.randint(0, 65536, (1 << 20,), generator=gen, device=dev)
+        v = randn(1 << 20)
+        check(coo_apply.densify_wins(1 << 20, 16, d, 65536, True)
+              == dense_route, f"(13) COO model at d={d}")
+        for f in real:
+            setattr(coo_apply, f, counted(f))
+        try:
+            calls.clear()
+            got = coo_apply.coo_left_apply_auto(r, c, v, B, d, 65536)
+        finally:
+            for f, fn in real.items():
+                setattr(coo_apply, f, fn)
+        taken = "coo_left_apply_dense" if dense_route else "coo_left_apply"
+        check(calls == [taken], f"(13) COO model at d={d}: {calls}")
+        other = real["coo_left_apply" if dense_route
+                     else "coo_left_apply_dense"]
+        err = rel_err(got, other(r, c, v, B, d, 65536))
+        check(err <= COO_REL_TOL, f"(13) COO routes at d={d}: {err}")
+        auto_ms = time_ms(lambda: coo_apply.coo_left_apply_auto(
+            r, c, v, B, d, 65536))
+        other_ms = time_ms(lambda: other(r, c, v, B, d, 65536))
+        print(f"(13) COO model d={d} m=65536 nnz=2^20 n=16: {taken} "
+              f"{auto_ms:.3f} ms, the other {other_ms:.3f} ms; normalised "
+              f"difference {err:.3g} <= {COO_REL_TOL} [{card}]")
+    del B, r, c, v, got
+    torch.cuda.empty_cache()
+
+    # the SRHT's stage cap: m = 2^16, n = 4096
+    from randblas_tpu_torch import trig
+    A = randn(65536, 4096)
+    S = rt.TrigSkOp(rt.TrigDist(1024, 65536), rt.RNGState.from_key(132))
+    caps = []
+    real_h = trig.hadamard_transform
+
+    def spy(x, max_factor=512):
+        caps.append(max_factor)
+        return real_h(x, max_factor)
+    trig.hadamard_transform = spy
+    try:
+        got, _ = drive("(13) SRHT sketch at m=2^16", lambda: rt.sketch_general(
+            S, A), {})
+    finally:
+        trig.hadamard_transform = real_h
+    check(caps == [hadamard.SRHT_CUDA_MAX_FACTOR],
+          f"(13) SRHT caps {caps}")
+    cap_ms = time_ms(lambda: rt.sketch_general(S, A))
+    saved = hadamard.SRHT_CUDA_MAX_FACTOR
+    hadamard.SRHT_CUDA_MAX_FACTOR = 512
+    try:
+        want = rt.sketch_general(S, A)
+        old_ms = time_ms(lambda: rt.sketch_general(S, A))
+    finally:
+        hadamard.SRHT_CUDA_MAX_FACTOR = saved
+    err = rel_err(got, want)
+    check(err <= SRHT_REL_TOL, f"(13) SRHT cap {saved} vs 512: {err}")
+    print(f"(13) SRHT 1024x65536 @ 65536x4096: cap {saved} {cap_ms:.3f} ms, "
+          f"cap 512 {old_ms:.3f} ms; normalised difference {err:.3g} <= "
+          f"{SRHT_REL_TOL} [{card}]")
+    del A, S, got, want
+    torch.cuda.empty_cache()
+    print(f"phase 13: {time.perf_counter() - t_phase:.1f} s (host clock, "
+          "checks and timings included)")
+
+
 def profile_main(rt, S, A, card):
     """One torch.profiler window over five main-path calls: K1's device
     time per call and the share of the window in which the card ran no
@@ -3179,8 +3449,11 @@ def main():
     del B_staged, B_ref
 
     def case(kname, name, S_c, A_c, kw, tol, reference):
+        # forced: at these edge shapes (narrow n, bf16) "auto" takes the
+        # staged route (phase 13), and the case holds the kernel
         n_before = counters[kname].launches
-        got = rt.sketch_general(S_c, A_c, side="left", **kw)
+        with rt.flags(use_fused=True):
+            got = rt.sketch_general(S_c, A_c, side="left", **kw)
         kw_ref = {("rows_s" if k == "d" else k): v for k, v in kw.items()}
         kw_ref["cols_s"] = A_c.shape[0]
         want = reference(S_c, A_c, **kw_ref)
@@ -3358,13 +3631,17 @@ def main():
             edge("K2", name, S_c, A_t, dict(kw, ro_s=3), tol)
     del wide
 
-    # a square dist transposes to itself: its backward pass is staged
+    # a square dist transposes to itself: its backward pass is staged (the
+    # forward forced onto K2: at n = 512 "auto" takes the staged route)
     S_sq = op((2048, 2048), key=9)            # square+Long: ColMajor
     A_sq = A[:2048, :512].clone().requires_grad_(True)
     G_sq = G[:, :512].repeat(2, 1).contiguous()
+
+    def square_backward():
+        with rt.flags(use_fused=True):
+            rt.sketch_general(S_sq, A_sq).backward(G_sq)
     drive("square dist forward (K2) and staged backward (K3 fill)",
-          lambda: rt.sketch_general(S_sq, A_sq).backward(G_sq),
-          {"K1": 0, "K2": 1, "K3": 1})
+          square_backward, {"K1": 0, "K2": 1, "K3": 1})
     sq_ref = S_sq.materialize(device=dev).T @ G_sq
     sq_rel = rel_err(A_sq.grad, sq_ref)
     check(sq_rel <= F32_REL_TOL, f"square backward: rel err {sq_rel}")
@@ -3465,6 +3742,9 @@ def main():
     tier45_paths(rt, dev, drive, card, cli.seed)
     torch.cuda.empty_cache()
     distributed_paths(rt, dev, drive, card, cli.seed)
+    torch.cuda.empty_cache()
+    gate_paths(rt, dev, drive, card,
+               lambda A: lambda: rt.sketch_general(S, A, side="left"))
     # launches: K1 on the main path, K2 on its backward pass (a), K3 on the
     # staged route, whose fill the K3 entry's numbers time
     k3_ms, k3_seq_ms, k3_dev_ms = k3_first["boxmul"]

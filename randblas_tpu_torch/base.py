@@ -45,6 +45,13 @@ def require(cond: bool, msg: str):
         raise ValueError(f"randblas_tpu_torch requirement failed: {msg}")
 
 
+def on_card(t) -> bool:
+    """Whether the "auto" dispatch gates treat tensor ``t`` as lying on the
+    card. Every gate asks this one predicate, so a CPU test can stand a CPU
+    tensor in for a CUDA one."""
+    return t.is_cuda
+
+
 def is_dtensor(x) -> bool:
     """Whether ``x`` is a ``torch.distributed`` DTensor. A DTensor exists
     only once its module is imported, so this imports nothing."""

@@ -5,8 +5,15 @@ The flags: ``use_fused`` ("auto" / True / False), ``use_kernel_fill``
 (False / True) and ``use_saso_kernel`` ("auto" / True / False) live in
 ``randblas_tpu_torch.skge``; ``auto_blocked_ell`` ("auto" / True / False) in
 ``randblas_tpu_torch.sparse_data.spmm``; ``use_native_x64`` ("auto" / False,
-the x64 fill's host engine) in ``randblas_tpu_torch.dense``. ``flags(...)`` scopes an override
-and restores it on exit::
+the x64 fill's host engine) in ``randblas_tpu_torch.dense``.
+
+"auto" takes a kernel (K1/K2, K4, K5) only on CUDA tensors, and there only
+where its gate holds: ``skge.fused_profitable``, ``skge.saso_profitable``,
+``sparse_data.spmm.blocked_ell_profitable``, boundaries measured on an
+H100 by ``gate_sweep.py`` (PERF.md, "H100 gates"); on CPU tensors it takes
+the routes without kernels. True forces the kernel route (its plain version
+on CPU tensors) at any supported shape; False never takes it.
+``flags(...)`` scopes an override and restores it on exit::
 
     with randblas_tpu_torch.flags(use_fused=False):
         B = randblas_tpu_torch.sketch(S, A)      # staged fill + GEMM

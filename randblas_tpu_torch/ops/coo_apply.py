@@ -19,6 +19,8 @@ from __future__ import annotations
 
 import torch
 
+from .. import base
+
 # Memory budget, in elements, of the one-shot densified operator of
 # coo_left_apply_dense (2^28 float32 elements = 1 GiB); larger operators
 # densify panel by panel.
@@ -113,17 +115,38 @@ def row_gather_apply(idxs_major, vals, b: torch.Tensor,
     return _scaled(alpha, acc)
 
 
+# The densify route on the card (``densify_wins``), from gate_sweep.py's G6
+# on an NVIDIA H100 80GB HBM3 at 700 W (d 64-4096, m 4096-65536, nnz
+# 2^12-2^20, n 1-2048; two calls of two runs each; PERF.md "H100 gates"):
+# an element gathered and added costs the time of about 384 multiply-adds
+# of the densified product, and densifying about 48 columns' worth; below
+# 2^23 elements gathered the gather stays near its launch floor. Of the 162
+# points the rule disagrees with the runs at 4, by at most 0.36 ms (the JAX
+# package's model, kept for CPU tensors, at 27).
+CUDA_GATHER_COST = 384
+CUDA_DENSIFY_COLUMNS = 48
+CUDA_GATHER_FLOOR = 1 << 23
+
+
+def densify_wins(nnz: int, n: int, d: int, m: int, cuda: bool) -> bool:
+    """Whether ``coo_left_apply_auto`` densifies (d, m) COO data of nnz
+    entries for a product of width n: on the card by the measured rule
+    above, elsewhere by the JAX package's traffic model (nnz * n elements
+    gathered against d * m scattered)."""
+    if cuda:
+        return (CUDA_GATHER_COST * nnz * n > d * m * (n + CUDA_DENSIFY_COLUMNS)
+                and nnz * n > CUDA_GATHER_FLOOR)
+    return nnz * n > 4 * d * m or (n >= 64 and nnz * n > (1 << 22))
+
+
 def coo_left_apply_auto(rows, cols, vals, b: torch.Tensor, d: int, m: int,
                         ro: int = 0, co: int = 0, alpha=1.0) -> torch.Tensor:
-    """The JAX package's choice between gather + index_add (nnz * n
-    elements moved) and densify + matmul (d * m elements scattered, then
-    a matmul), from those element counts; the densify route works panel
-    by panel when the (d, m) operator exceeds the memory budget. The
-    thresholds are the JAX package's traffic model, not an H100
-    measurement (ROADMAP item 13)."""
+    """Gather + index_add (``coo_left_apply``) or densify + matmul, as
+    ``densify_wins`` decides; the densify route works panel by panel when
+    the (d, m) operator exceeds the memory budget."""
     nnz = rows.shape[0]
     n = b.shape[1]
-    if nnz * n > 4 * d * m or (n >= 64 and nnz * n > (1 << 22)):
+    if densify_wins(nnz, n, d, m, base.on_card(b)):
         if d * m <= _DENSE_BUDGET:
             return coo_left_apply_dense(rows, cols, vals, b, d, m, ro, co,
                                         alpha)

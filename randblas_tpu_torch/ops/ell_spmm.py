@@ -189,6 +189,20 @@ class BlockedELL:
         return torch.from_numpy(np.ascontiguousarray(dense)).to(self.device)
 
 
+def slot_width(rows, cols, vals, n_cols: int, kb: int = 128) -> int:
+    """The bw that ``BlockedELL.from_ell`` gives the COO triplets (no
+    word-major map, no cap): the most nonzero entries in one (row, column
+    block of kb), rounded up to a multiple of 8, at least 8. Counted on the
+    triplets' device; no table is built."""
+    keep = vals != 0
+    n_k = -(-n_cols // kb)
+    key = rows[keep].long() * n_k + cols[keep].long() // kb
+    if key.numel() == 0:
+        return 8
+    most = int(torch.unique(key, return_counts=True)[1].max())
+    return max(-(-most // 8) * 8, 8)
+
+
 def to_word_major_rows(b: torch.Tensor, w: int, n_cols: int) -> torch.Tensor:
     """A natural-row-order operand (n_cols, n) in word-major storage order
     (w * ceil(n_cols / w), n): storage row (k % w) * nblk + k // w holds

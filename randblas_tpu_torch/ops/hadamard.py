@@ -19,8 +19,19 @@ from __future__ import annotations
 
 import torch
 
+from .. import base
 from ..base import require
 from ..dense import default_device
+
+# Stage cap of the SRHT's transforms on CUDA tensors (``srht_max_factor``),
+# from gate_sweep.py's G7 on an NVIDIA H100 80GB HBM3 at 700 W (caps 64 to
+# 2048, d = 1024, two runs; PERF.md "H100 gates"): float32 stages are
+# compute-bound past a factor of about 64, so more stages of smaller factors
+# win. At m = 2^16, n = 4096, 3 stages of <= 64 take 6.77-6.79 ms against
+# 8.62-8.70 for 2 of 256 (every cap from 256 up); at m = 2^20, n = 64, 4 of
+# 32 take 2.26-2.48 against 2.42-2.57 (3 of <= 128) and 6.5-6.7 (2 of
+# 1024). At m = 2^12 every cap gives the same 2 stages of 64.
+SRHT_CUDA_MAX_FACTOR = 64
 
 
 def is_pow2(m: int) -> bool:
@@ -57,6 +68,13 @@ def hadamard_matrix(k: int, dtype=torch.float32, device=None) -> torch.Tensor:
     for b in range(max(k.bit_length() - 1, 1)):
         parity ^= (x >> b) & 1
     return (1 - 2 * parity).to(dtype)
+
+
+def srht_max_factor(x: torch.Tensor) -> int:
+    """The stage cap the SRHT's transforms (trig.py, tensor.py) pass for
+    the block ``x``: ``SRHT_CUDA_MAX_FACTOR`` on the card, else 512, the
+    default of ``hadamard_transform``."""
+    return SRHT_CUDA_MAX_FACTOR if base.on_card(x) else 512
 
 
 def hadamard_transform(x: torch.Tensor, max_factor: int = 512

@@ -27,9 +27,12 @@ A fused route needs a lazy operator, a Philox4x32/Threefry4x32 seed and
 float32 or bf16 data. An operator with an x64 seed (Philox/Threefry 2x64,
 4x64) therefore always takes the staged route: its block is filled on the
 host in float64 (``dense.fill_dense_submat``) and multiplied on A's
-device. On CUDA tensors ``use_fused="auto"`` takes a fused
-route whenever one is eligible; on CPU tensors "auto" takes the staged
-route, and ``use_fused=True`` takes the kernels' plain versions. A square
+device. On CUDA tensors ``use_fused="auto"`` takes an eligible fused route
+where ``fused_profitable`` holds for the kernel call it makes (operator
+rows, contraction, data columns, dtype: the H100 boundaries of
+gate_sweep.py, PERF.md "H100 gates"), else the staged route; on CPU
+tensors "auto" takes the staged route, and ``use_fused=True`` takes the
+kernels (their plain versions on the CPU) at any shape. A square
 distribution transposes to itself, so the identity behind the left-Trans
 and right routes fails for it and they leave it to the staged route. The
 fused routes are differentiable in A (ops/fused_sketch.py).
@@ -41,8 +44,9 @@ way:
 - ``sparse_saso_kernel``: the full wide SASO, and the transposed full tall
   SASO (whose transpose is wide), through K4 (ops/saso_sketch.py), which
   reads the data once. On CUDA tensors ``use_saso_kernel="auto"`` takes it
-  whenever ``saso_sketch_supported`` holds and the data is float32;
-  ``True`` also runs K4's plain version on the CPU; ``False`` never.
+  where ``saso_sketch_supported`` and ``saso_profitable`` hold and the data
+  is float32; ``True`` also runs K4's plain version on the CPU, at any
+  supported shape; ``False`` never.
 - ``sparse_fixed_nnz``: the same operators by one ``index_add_`` per slot.
 - ``sparse_row_gather``: the full tall SASO, and the transposed full wide
   one: each output row gathers k data rows.
@@ -50,10 +54,12 @@ way:
 
 SRHT operators (TrigSkOp) take the route ``srht``: the full operator only,
 no submatrix offsets, by ``lmult``/``lmult_t`` (Hadamard stages as
-``torch.matmul``; no hand-written kernel, as in the JAX package).
+``torch.matmul``, capped on the card by ``ops.hadamard.srht_max_factor``;
+no hand-written kernel, as in the JAX package).
 
-No dispatch gate here comes from a TPU measurement; profit gates for the
-H100 are ROADMAP.md item 13.
+Every "auto" gate here is an H100 measurement (``gate_sweep.py``), none a
+TPU one; the distributed layer's dense shards keep the JAX package's rule,
+which has no size gate.
 """
 
 from __future__ import annotations
@@ -63,16 +69,40 @@ from typing import Optional
 
 import torch
 
+from . import base
 from .base import MajorAxis, Op, Side, dims_before_op, require
 from .dense import DenseDist, DenseSkOp
 from .sparse import SparseSkOp
 from .trig import TrigSkOp
 
 # Fused-kernel dispatch policy: "auto" takes a fused route (K1 or K2) on
-# CUDA tensors whenever the call qualifies; True forces the fused routes
-# (the kernels' plain versions on the CPU), and a forced left sketch that
-# no fused route takes raises; False always takes the staged route.
+# CUDA tensors where the call qualifies and ``fused_profitable`` holds;
+# True forces the fused routes (the kernels' plain versions on the CPU), and
+# a forced left sketch that no fused route takes raises; False always takes
+# the staged route.
 use_fused = "auto"
+
+# K1/K2 against the staged route (K3 fill + torch.matmul) on an NVIDIA H100
+# 80GB HBM3 at 700 W: gate_sweep.py G1, G2, G1N, G2N, G1B, G2B, G3, G3N, two
+# runs each (PERF.md "H100 gates"). The rule agrees with 356 of the 360
+# points; at the other 4 (0.12-0.20 ms calls, 2^29-2^31 operations) the
+# kernel was faster by at most 0.08 ms in a run.
+# - bf16 data: the staged route's bf16 matmul wins at every point (1.3-20x).
+# - At most FUSED_MIN_WORK operations (2 rows m n) both routes are a few
+#   launches; the staged route wins or ties.
+# - At n <= FUSED_MAX_NARROW_N the staged route wins at every point (K1 up
+#   to 16384 rows, K2 up to 65536).
+# - Narrower than 8 column tiles the launch plan forms clusters of 1, 2 or
+#   4 CTAs and never cuts the contraction (ops/fused_sketch.launch_plan):
+#   the kernel wins only with more operator rows than
+#   FUSED_NARROW_ROWS[cluster] (each the largest measured losing row count;
+#   K1 at n = 256 loses at 8192 rows, 8.36 ms against 6.53, and wins at
+#   16384, 8.27 against 12.83).
+# - The size ratio of the right route needs no gate: the kernel wins at
+#   every ratio from 1/16 to 8 at m = 32768, n = 2048 (1.15-4.3x).
+FUSED_MIN_WORK = 1 << 31
+FUSED_MAX_NARROW_N = 64
+FUSED_NARROW_ROWS = {1: 8192, 2: 2048, 4: 1024}
 
 # Staged-route fill transform. On CUDA tensors the staged route fills a
 # lazy Gaussian or Uniform operator block through the fill kernel K3 (the
@@ -84,10 +114,19 @@ use_fused = "auto"
 # values differ by about one ulp.
 use_kernel_fill = False
 
-# SASO kernel (K4) dispatch policy: "auto" takes K4 on CUDA tensors whenever
-# the call qualifies; True also runs its plain version on the CPU; False
-# always takes the fixed-nnz route.
+# SASO kernel (K4) dispatch policy: "auto" takes K4 on CUDA tensors where
+# the call qualifies and ``saso_profitable`` holds; True also runs its plain
+# version on the CPU; False always takes the fixed-nnz route.
 use_saso_kernel = "auto"
+
+# K4 against the fixed-nnz route on an NVIDIA H100 80GB HBM3 at 700 W:
+# gate_sweep.py G4, G4N, two runs each (PERF.md "H100 gates"). K4 wins or
+# ties at every point (up to 65x at k = 16) but d = 4096 with m = 131072
+# and 262144 at n = 1, 4 and 16 (0.47-1.52 ms against 0.38-0.68): its
+# one-hot panels cost d m whatever n, the fixed-nnz route k m n. At d m =
+# 2^28 and below it wins at every n.
+SASO_NARROW_N = 16
+SASO_NARROW_MAX_DM = 1 << 28
 
 # how many calls took each route (see the module docstring)
 route_counts = collections.Counter()
@@ -138,12 +177,32 @@ def _scaled(alpha, prod: torch.Tensor) -> torch.Tensor:
     return torch.as_tensor(alpha, dtype=prod.dtype) * prod
 
 
+def fused_profitable(rows: int, contraction: int, n: int, dtype) -> bool:
+    """Whether "auto" takes K1 or K2 on the card for a kernel call of an
+    operator block of ``rows`` x ``contraction`` on data of n columns
+    (the boundaries above)."""
+    from .ops.fused_sketch import launch_plan
+    if dtype != torch.float32 or n <= FUSED_MAX_NARROW_N:
+        return False
+    if 2 * rows * contraction * n <= FUSED_MIN_WORK:
+        return False
+    cluster = launch_plan(rows, contraction, n).cluster
+    return rows > FUSED_NARROW_ROWS.get(cluster, 0)
+
+
 def _fused_gates_ok(S: DenseSkOp, A: torch.Tensor) -> bool:
     from .ops.fused_sketch import SUPPORTED_RNGS
     return (use_fused is not False and S.materialized is None
             and S.seed_state.rng in SUPPORTED_RNGS
             and A.dtype in (torch.float32, torch.bfloat16)
-            and (use_fused is True or A.is_cuda))
+            and (use_fused is True or base.on_card(A)))
+
+
+def _fused_call_ok(rows: int, contraction: int, data) -> bool:
+    """The size gate of one K1/K2 call on ``data`` (contraction, n): forced
+    calls pass, "auto" asks ``fused_profitable``."""
+    return use_fused is True or fused_profitable(rows, contraction,
+                                                 data.shape[1], data.dtype)
 
 
 def _transposed_op(S: DenseSkOp) -> DenseSkOp:
@@ -159,6 +218,8 @@ def _fused(S: DenseSkOp, a_mat, alpha, blk):
     takes it."""
     from .ops import fused_sketch as fs
     rows_s, cols_s, ro_s, co_s = blk
+    if not _fused_call_ok(rows_s, cols_s, a_mat):
+        return None
     for name, supported, kernel in (
             ("K1", fs.fused_sketch_supported, fs.fused_sketch),
             ("K2", fs.fused_sketch_colmajor_supported,
@@ -202,9 +263,10 @@ def _right_fused_or_none(S: DenseSkOp, a_mat, blk, op_s: Op, alpha):
     else:
         return None
     from .ops.fused_sketch import fused_sketch, fused_sketch_supported
-    if not fused_sketch_supported(S_l.dist, *blk, Op.NoTrans, a_mat.dtype):
-        return None
     rows_s, cols_s, ro_s, co_s = blk
+    if not (fused_sketch_supported(S_l.dist, *blk, Op.NoTrans, a_mat.dtype)
+            and _fused_call_ok(rows_s, cols_s, a_mat.T)):
+        return None
     return fused_sketch(S_l, a_mat.T, alpha=float(alpha), rows_s=rows_s,
                         cols_s=cols_s, ro_s=ro_s, co_s=co_s).T
 
@@ -215,16 +277,24 @@ def _require_full_trig(S: TrigSkOp, rows_s, cols_s, ro_s, co_s):
             "apply the full operator")
 
 
+def saso_profitable(d: int, m: int, n: int) -> bool:
+    """Whether "auto" takes K4 on the card for a (d, m) wide SASO on n data
+    columns (the boundary above)."""
+    return n > SASO_NARROW_N or d * m <= SASO_NARROW_MAX_DM
+
+
 def _saso_kernel_ok(d: int, m: int, k: int, b: torch.Tensor) -> bool:
     """Whether K4 takes a (d, m) wide-SASO product with k slots per column
     on b: its shape gate (the JAX package's: k <= 16, ceil(d / 128) * 128
-    <= 4096) and float32 data, on a CUDA tensor under "auto" or anywhere
-    under True."""
+    <= 4096) and float32 data, anywhere under True, on a CUDA tensor where
+    ``saso_profitable`` holds under "auto". The distributed layer's SASO
+    shards ask it too."""
     from .ops.saso_sketch import saso_sketch_supported
-    return (use_saso_kernel is not False
-            and saso_sketch_supported(d, m, k, b.shape[1])
-            and b.dtype == torch.float32
-            and (use_saso_kernel is True or b.is_cuda))
+    if (use_saso_kernel is False or b.dtype != torch.float32
+            or not saso_sketch_supported(d, m, k, b.shape[1])):
+        return False
+    return use_saso_kernel is True or (base.on_card(b) and saso_profitable(
+        d, m, b.shape[1]))
 
 
 def _fixed_nnz(idx, vals, b, d, alpha):

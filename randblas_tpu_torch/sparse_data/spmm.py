@@ -3,14 +3,14 @@
 
 Every format funnels into the COO apply (ops/coo_apply.py); transposes
 swap the index roles without copying. A BlockedELL operand goes through
-the kernel K5 (ops/ell_spmm.py), and so does a full untransposed product
+the kernel K5 (ops/ell_spmm.py), and so may a full untransposed product
 with CSR, CSC or COO data on a CUDA tensor: the data is converted to
 BlockedELL once, on the host, and the result is cached on the matrix.
-
-The JAX package's profit gates for that conversion (n < 128, nnz < 2^15,
-bw > 16) are v5e measurements and are not copied: H100 gates are ROADMAP
-item 13. The reference's right-sided ``spmm`` passes B twice; that bug is
-not copied either.
+``blocked_ell_profitable`` decides, from the product's width and the slot
+width bw that the conversion would give (counted from the triplets before
+any table is built), by the H100 boundaries of
+gate_sweep.py's G5 (PERF.md, "H100 gates"). The reference's right-sided
+``spmm`` passes B twice; that bug is not copied.
 """
 
 from __future__ import annotations
@@ -19,16 +19,28 @@ from typing import Optional
 
 import torch
 
+from .. import base
 from ..base import Op, require
 from ..ops.coo_apply import coo_left_apply_auto as coo_left_apply
 from .conversions import to_coo
 
 # BlockedELL route for full untransposed CSR/CSC/COO products: "auto" takes
-# K5 on CUDA tensors; True also on CPU tensors (its plain version); False
-# never.
+# K5 on CUDA tensors where ``blocked_ell_profitable`` holds; True also on
+# CPU tensors (its plain version), at any shape; False never.
 auto_blocked_ell = "auto"
 
-
+# K5 against the COO route on an NVIDIA H100 80GB HBM3 at 700 W
+# (gate_sweep.py G5, config 4b's 20000 x 10000, two calls of two runs each;
+# PERF.md "H100 gates"). Steady state, tables cached: K5 wins at every n
+# from 8 to 2048 up to bw 32 and at every nnz from 2^12 to 1e6, and at n = 1
+# up to 2^19 entries; a vector at bw 8 (1e6 entries) and 16 went to the COO
+# route in the first call's two runs but not in the second's, so K5 stays.
+# The COO route wins at n = 1 at bw 32 in all four runs (K5 0.51-0.56 ms
+# against 0.26-0.37), at n <= 8 at bw 64 and at n <= 32 at bw 136 (one full
+# row), where the conversion also builds 0.77 and 1.64 GiB of tables in 3.6
+# and 5.0-6.6 s (bw 32: 0.39 GiB, 1.8-2.3 s).
+BLOCKED_ELL_MAX_BW = 32    # wider slots: the COO route
+BLOCKED_ELL_VECTOR_N = 8   # at the widest slots kept, narrower products too
 def _as_op(op) -> Op:
     if isinstance(op, Op):
         return op
@@ -40,16 +52,34 @@ def _as_op(op) -> Op:
     raise ValueError(f"invalid op: {op!r}")
 
 
+def blocked_ell_profitable(n: int, bw: int) -> bool:
+    """Whether "auto" takes K5 on the card for a product of width n with
+    sparse data whose BlockedELL has slot width bw (no entry-count gate:
+    K5 wins at every swept nnz)."""
+    if bw > BLOCKED_ELL_MAX_BW:
+        return False
+    return bw < BLOCKED_ELL_MAX_BW or n >= BLOCKED_ELL_VECTOR_N
+
+
 def _blocked_ell_or_none(A, b_mat):
     """A BlockedELL form of A for K5, converted once on the host and
-    cached on A, or None when the route is off."""
+    cached on A, or None when the route is off or, under "auto", the gate
+    declines (decided before any table is built; bw is cached on A)."""
     if auto_blocked_ell is False or (auto_blocked_ell == "auto"
-                                     and not b_mat.is_cuda):
+                                     and not base.on_card(b_mat)):
         return None
+    from ..ops.ell_spmm import BlockedELL, slot_width
+    if auto_blocked_ell == "auto":
+        bw = getattr(A, "_bell_bw", None)
+        if bw is None:
+            coo = to_coo(A)
+            bw = slot_width(coo.rows, coo.cols, coo.vals, coo.n_cols)
+            object.__setattr__(A, "_bell_bw", bw)
+        if not blocked_ell_profitable(b_mat.shape[1], bw):
+            return None
     cached = getattr(A, "_bell_cache", None)
     if cached is not None and cached.device == b_mat.device:
         return cached
-    from ..ops.ell_spmm import BlockedELL
     from .ell import ELLMatrix
     bell = BlockedELL.from_ell(ELLMatrix.from_coo(to_coo(A)),
                                device=b_mat.device)

@@ -28,7 +28,7 @@ from typing import Sequence, Tuple
 import torch
 
 from .base import MajorAxis, mesh_of, require
-from .ops.hadamard import hadamard_transform, next_pow2
+from .ops.hadamard import hadamard_transform, next_pow2, srht_max_factor
 from .rng.state import RNGState
 from .skge import sketch_general
 from .sparse import SparseDist, SparseSkOp
@@ -175,7 +175,8 @@ def kfjlt_sketch(factors: Sequence[torch.Tensor], d: int, state: RNGState,
     parts, nxt = _kfjlt_sample(dims, d, state, dtype, factors[0].device)
     out = None
     for f, (sgn, m_pad, idx) in zip(factors, parts):
-        y = hadamard_transform(_signed_padded(sgn, m_pad, f.to(dtype)))[idx]
+        x = _signed_padded(sgn, m_pad, f.to(dtype))
+        y = hadamard_transform(x, srht_max_factor(x))[idx]
         out = y if out is None else out * y
     return kfjlt_scale(dims, d) * out, nxt
 
@@ -195,8 +196,8 @@ def kfjlt_sketch_explicit(x: torch.Tensor, mode_dims: Sequence[int], d: int,
         z = torch.movedim(z, ax, 0)
         rest = z.shape[1:]
         flat = _signed_padded(sgn, m_pad, z.reshape(z.shape[0], -1))
-        z = torch.movedim(hadamard_transform(flat).reshape(m_pad, *rest),
-                          0, ax)
+        h = hadamard_transform(flat, srht_max_factor(flat))
+        z = torch.movedim(h.reshape(m_pad, *rest), 0, ax)
     out = z[tuple(idx for (_s, _m, idx) in parts)]            # (d, n)
     return kfjlt_scale(mode_dims, d) * out, nxt
 

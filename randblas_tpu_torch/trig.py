@@ -31,7 +31,7 @@ import torch
 
 from .base import require
 from .dense import default_device
-from .ops.hadamard import hadamard_transform, next_pow2
+from .ops.hadamard import hadamard_transform, next_pow2, srht_max_factor
 from .rng.state import RNGState
 from .util import _uniform_stream_bits, sample_indices_iid_uniform
 
@@ -139,7 +139,7 @@ class TrigSkOp:
                 "lmult needs a with shape (n_cols, n)")
         signs, indices = self._sample(a.device)
         x = _signed_padded(signs.to(a.dtype), self.dist.padded_cols, a)
-        return hadamard_transform(x)[indices.long()]
+        return hadamard_transform(x, srht_max_factor(x))[indices.long()]
 
     def lmult_t(self, b: torch.Tensor) -> torch.Tensor:
         """S^T @ b for b of shape (d, n), the exact adjoint of lmult (H is
@@ -150,7 +150,7 @@ class TrigSkOp:
         signs, indices = self._sample(b.device)
         y = b.new_zeros((self.dist.padded_cols, b.shape[1]))
         y = y.index_add(0, indices.long(), b)
-        z = hadamard_transform(y)[:self.n_cols]
+        z = hadamard_transform(y, srht_max_factor(y))[:self.n_cols]
         return signs[:, None].to(b.dtype) * z
 
     def materialize(self, device=None) -> torch.Tensor:

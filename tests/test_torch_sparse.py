@@ -328,8 +328,8 @@ def test_compat_layout_helpers_match_jax():
 
 def test_every_port_module_imports_with_jax_blocked():
     """Every module of the port, chip_smoke.py and the scripts beside it
-    (kernel_variants.py, the ablations and dist_smoke.py) import with jax
-    and the JAX package blocked in sys.modules."""
+    (kernel_variants.py, the ablations, dist_smoke.py and gate_sweep.py)
+    import with jax and the JAX package blocked in sys.modules."""
     import os
     import subprocess
     import sys
@@ -344,7 +344,7 @@ def test_every_port_module_imports_with_jax_blocked():
         "'randblas_tpu_torch.')]\n"
         "for name in names + ['chip_smoke', 'kernel_variants', "
         "'fused_ablation', 'saso_ablation', 'fill_ablation', "
-        "'dist_smoke']:\n"
+        "'dist_smoke', 'gate_sweep']:\n"
         "    importlib.import_module(name)\n"
         "print(' '.join(names))\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
