@@ -18,7 +18,8 @@ inputs, numbered as the JAX package's dryrun_multichip:
 - (M1) ``distributed_sketch`` at the main shape (1024 x 65536 . 65536 x
   4096), and its backward pass; (M2) ``distributed_sketch_right`` at
   run_all.py config 2; (M3) ``distributed_sparse_sketch`` at config 3;
-  (M4) ``distributed_sketch_cols`` at the main shape; (M5)
+  (M4) ``distributed_sketch_cols`` at the main shape (K1 a rank where
+  ``skge.fused_profitable`` takes the rank's tile, else staged); (M5)
   ``distributed_sketch_sparse_data`` at config 4; (M6) pad-and-shard at
   d = 1000, m = 65000, n = 4093; (M7) the SRHT over columns;
 - (M8) ``distributed_rsvd`` and (M9) ``distributed_krylov_rangefinder`` of
@@ -74,6 +75,7 @@ TS_TOL = 1e-6        # a tensor sketch of a rank's columns vs the full call:
                      # the same per-column arithmetic, but the FFTs and the
                      # Hadamard GEMMs are planned for another batch width
 K1_REL_TOL = 1e-3    # bf16-operand kernels, sums in another order
+STAGED_REL_TOL = 2e-2  # the float32 staged route vs K1's bf16 operands
 K4_REL_TOL = 1e-5    # K4 against K4 on the same bf16-rounded data
 F32_REL_TOL = 1e-4   # float32 sums of 20000 terms in another order
 SRHT_REL_TOL = 2e-5
@@ -123,7 +125,8 @@ def rank_main():
     import randblas_tpu_torch as rt
     from randblas_tpu_torch import linalg as la
     from randblas_tpu_torch import parallel as par
-    from randblas_tpu_torch import profiling
+    from randblas_tpu_torch import profiling, skge
+    from randblas_tpu_torch.parallel import distributed as pd
     from randblas_tpu_torch.ops import ell_spmm, fused_sketch, saso_sketch
 
     par.initialize_multihost()
@@ -273,9 +276,14 @@ def rank_main():
              lambda: par.distributed_sparse_sketch(S3, A3_dt, mesh),
              {"K4": 1}, B3, K4_REL_TOL, lambda: rt.sketch_general(S3, A3))
         A4_dt = distribute_tensor(A, mesh, cols)
+        # a rank's (D / model) x M tile on N / data columns: K1 where the
+        # gate takes it (not at 1 x 4's 1024 columns, a cluster of 4)
+        d4, n4 = pd.cols_extents(S, N, (model, data))
+        k1 = skge.fused_profitable(d4, M, n4, torch.float32)
         path(f"(M4) {label} distributed_sketch_cols",
-             lambda: par.distributed_sketch_cols(S, A4_dt, mesh), {"K1": 1},
-             B1, K1_REL_TOL)
+             lambda: par.distributed_sketch_cols(S, A4_dt, mesh),
+             {"K1": 1} if k1 else {"K3": 1}, B1,
+             K1_REL_TOL if k1 else STAGED_REL_TOL)
         path(f"(M5) {label} distributed_sketch_sparse_data",
              lambda: par.distributed_sketch_sparse_data(S5, coo, mesh),
              {"K3": 1}, B5, F32_REL_TOL, lambda: rt.sketch_sparse(S5, coo))

@@ -30,10 +30,13 @@ offsets land on counter boundaries (``_shard_extent``); a shard past the
 true parent is clipped, never generated.
 
 Routes of a shard: a lazy Gaussian or Uniform operator with a 4x32
-generator takes the fused kernel K1 on CUDA tensors (``use_fused="auto"``),
-K1's plain version on CPU tensors under ``use_fused=True``, and the staged
-fill (K3 on the card) and ``torch.matmul`` under ``use_fused=False`` or
-where K1 does not take the tile. A canonical wide SASO shard takes K4 where
+generator takes the fused kernel K1 on CUDA tensors where ``skge``'s K1
+gate (``fused_profitable``) takes the shard's kernel call
+(``use_fused="auto"``), so a 1 x 1 mesh routes as the single-device call
+does; K1's plain version on CPU tensors under ``use_fused=True``; and the
+staged fill (K3 on the card) and ``torch.matmul`` under
+``use_fused=False``, where the gate declines or where K1 does not take the
+tile. A canonical wide SASO shard takes K4 where
 ``skge``'s K4 gate does. The sketches are differentiable in A: the
 all-reduce over 'data' passes the cotangent through unchanged, the shard
 body differentiates as it does on one device (K1's backward pass is K2),
@@ -226,11 +229,13 @@ def _require_x32(S: DenseSkOp) -> None:
 
 
 def _fused_ok(S: DenseSkOp, dist_rowmajor: DenseDist, a: torch.Tensor,
-              use_fused) -> bool:
-    """Whether a shard takes K1 for the RowMajor-natural ``dist_rowmajor``:
-    skge's gate (a lazy Gaussian or Uniform operator, a 4x32 generator,
-    float32 or bf16 data; on CUDA tensors under "auto", anywhere under
-    True), with the JAX package's float32 operator."""
+              use_fused, rows: int, contraction: int) -> bool:
+    """Whether a shard takes K1 for the RowMajor-natural ``dist_rowmajor``
+    on the kernel call of a (rows, contraction) tile times ``a``
+    (contraction, n): skge's gates (a lazy Gaussian or Uniform operator, a
+    4x32 generator, float32 or bf16 data, the JAX package's float32
+    operator; under "auto" a CUDA tensor and ``skge.fused_profitable``,
+    anywhere under True)."""
     from ..ops.fused_sketch import SUPPORTED_RNGS
     ok = (use_fused is not False and S.materialized is None
           and S.dtype == torch.float32
@@ -242,7 +247,9 @@ def _fused_ok(S: DenseSkOp, dist_rowmajor: DenseDist, a: torch.Tensor,
     if use_fused is True:
         require(ok, "fused distributed path forced but unsupported")
         return True
-    return ok and a.is_cuda
+    from .. import base, skge
+    return (ok and base.on_card(a)
+            and skge.fused_profitable(rows, contraction, a.shape[1], a.dtype))
 
 
 def _scaled(alpha, t: torch.Tensor) -> torch.Tensor:
@@ -298,7 +305,7 @@ def left_shard(S: DenseSkOp, a_blk: torch.Tensor, coord, shape, *,
     co, cols = shard_span(m, m_per, di)
     require(a_blk.shape[0] == cols, f"shard {coord} takes {cols} rows of A")
     return _tile_times(S, a_blk, rows, cols, ro, co, alpha,
-                       _fused_ok(S, S.dist, a_blk, use_fused))
+                       _fused_ok(S, S.dist, a_blk, use_fused, rows, cols))
 
 
 def distributed_sketch(S: DenseSkOp, A, mesh: DeviceMesh, *, alpha=1.0,
@@ -356,7 +363,8 @@ def right_shard(S: DenseSkOp, a_blk: torch.Tensor, coord, shape, *,
     require(a_blk.shape[1] == rows, f"shard {coord} takes {rows} columns "
                                     "of A")
     if (S.materialized is None and m != d
-            and _fused_ok(S, _transposed(S).dist, a_blk, use_fused)):
+            and _fused_ok(S, _transposed(S).dist, a_blk.T, use_fused, cols,
+                          rows)):
         return _tile_times(_transposed(S), a_blk.T, cols, rows, co, ro,
                            alpha, True).T
     require(use_fused is not True,
@@ -495,7 +503,7 @@ def cols_shard(S, a_blk: torch.Tensor, coord, shape, n: int, *, alpha=1.0,
         h = hadamard_transform(x)
         return _scaled(alpha, h[indices[ro:ro + rows].long()])
     return _tile_times(S, a_blk, rows, m, ro, 0, alpha,
-                       _fused_ok(S, S.dist, a_blk, use_fused))
+                       _fused_ok(S, S.dist, a_blk, use_fused, rows, m))
 
 
 def distributed_sketch_cols(S, A, mesh: DeviceMesh, *, alpha=1.0,

@@ -6,10 +6,10 @@ swap the index roles without copying. A BlockedELL operand goes through
 the kernel K5 (ops/ell_spmm.py), and so may a full untransposed product
 with CSR, CSC or COO data on a CUDA tensor: the data is converted to
 BlockedELL once, on the host, and the result is cached on the matrix.
-``blocked_ell_profitable`` decides, from the product's width and the slot
+``blocked_ell_profitable`` decides, from the product's width, the slot
 width bw that the conversion would give (counted from the triplets before
-any table is built), by the H100 boundaries of
-gate_sweep.py's G5 (PERF.md, "H100 gates"). The reference's right-sided
+any table is built) and the tables' size, by the H100 boundaries of
+gate_sweep.py's G5 (PERF.md, "H100 gates") and a cap on the tables. The reference's right-sided
 ``spmm`` passes B twice; that bug is not copied.
 """
 
@@ -41,6 +41,13 @@ auto_blocked_ell = "auto"
 # and 5.0-6.6 s (bw 32: 0.39 GiB, 1.8-2.3 s).
 BLOCKED_ELL_MAX_BW = 32    # wider slots: the COO route
 BLOCKED_ELL_VECTOR_N = 8   # at the widest slots kept, narrower products too
+# The tables hold rows x ceil(cols / 128) x bw slots whatever the entries: a
+# 200000 x 150000 matrix of 3e7 entries (0.1% dense, bw 8) needs 1.9e9 slots,
+# 62 a stored entry, which took 53 s of host conversion (28 ns a slot) and
+# 16.8 GiB of device memory, to save 36 of 138 ms a QB call (chip_smoke.py
+# phase 14 (A2s), same card). Past 2^27 slots (1 GiB of tables, ~4 s):
+# the COO route.
+BLOCKED_ELL_MAX_SLOTS = 2 ** 27
 def _as_op(op) -> Op:
     if isinstance(op, Op):
         return op
@@ -52,11 +59,11 @@ def _as_op(op) -> Op:
     raise ValueError(f"invalid op: {op!r}")
 
 
-def blocked_ell_profitable(n: int, bw: int) -> bool:
+def blocked_ell_profitable(n: int, bw: int, slots: int = 0) -> bool:
     """Whether "auto" takes K5 on the card for a product of width n with
-    sparse data whose BlockedELL has slot width bw (no entry-count gate:
-    K5 wins at every swept nnz)."""
-    if bw > BLOCKED_ELL_MAX_BW:
+    sparse data whose BlockedELL has slot width bw and ``slots`` table
+    slots (no entry-count gate: K5 wins at every swept nnz)."""
+    if bw > BLOCKED_ELL_MAX_BW or slots > BLOCKED_ELL_MAX_SLOTS:
         return False
     return bw < BLOCKED_ELL_MAX_BW or n >= BLOCKED_ELL_VECTOR_N
 
@@ -75,7 +82,8 @@ def _blocked_ell_or_none(A, b_mat):
             coo = to_coo(A)
             bw = slot_width(coo.rows, coo.cols, coo.vals, coo.n_cols)
             object.__setattr__(A, "_bell_bw", bw)
-        if not blocked_ell_profitable(b_mat.shape[1], bw):
+        slots = A.shape[0] * -(-A.shape[1] // 128) * bw
+        if not blocked_ell_profitable(b_mat.shape[1], bw, slots):
             return None
     cached = getattr(A, "_bell_cache", None)
     if cached is not None and cached.device == b_mat.device:

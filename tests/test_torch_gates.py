@@ -284,6 +284,40 @@ def test_distributed_saso_shard_shares_the_gate(monkeypatch, on_card, take):
         4e-3 if take else TOL)
 
 
+@pytest.mark.parametrize("layout", ["left", "right", "cols"])
+@pytest.mark.parametrize("take", [True, False])
+def test_distributed_dense_shards_share_the_gate(monkeypatch, on_card,
+                                                 layout, take):
+    """Each dense shard asks ``fused_profitable`` with its kernel call's
+    (rows, contraction, n, dtype) and takes K1 (spied) or the staged tile
+    as told, so a 1 x 1 mesh routes as the single-device call does (a
+    32 x 1024 sketch of 64 columns took K1 on a 1 x 1 NCCL mesh and the
+    staged route alone on an H100, 0.26 apart in a sum of 1024 terms)."""
+    from randblas_tpu_torch.parallel import distributed as dist
+    asked = []
+
+    def gate(rows, contraction, n, dtype):
+        asked.append((rows, contraction, n, dtype))
+        return take
+    monkeypatch.setattr(skge, "fused_profitable", gate)
+    k1 = _spy(monkeypatch, fs, "fused_sketch")
+    if layout == "right":                  # A (40, 96) @ S (96, 24)
+        S = rt.DenseSkOp(rt.DenseDist(96, 24), rt.RNGState.from_key(7))
+        A = _data((40, 96), 13)
+        got = dist.right_shard(S, A, (0, 0), (1, 1))
+        want, call = A @ S.materialize("cpu"), (24, 96, 40)
+    else:                                  # S (24, 96) @ A (96, 40)
+        S = rt.DenseSkOp(rt.DenseDist(24, 96), rt.RNGState.from_key(7))
+        A = _data((96, 40), 13)
+        got = (dist.left_shard(S, A, (0, 0), (1, 1)) if layout == "left"
+               else dist.cols_shard(S, A, (0, 0), (1, 1), 40))
+        want, call = S.materialize("cpu") @ A, (24, 96, 40)
+    assert asked == [call + (F32,)]
+    assert k1.launches == int(take)
+    # K1's plain version rounds the operands to bf16
+    assert _rel(got, want) <= (4e-3 if take else TOL)
+
+
 # ---------------------------------- K5 (blocked_ell_profitable, slot_width)
 
 @pytest.mark.parametrize("n,bw,kernel", [
@@ -298,6 +332,35 @@ def test_distributed_saso_shard_shares_the_gate(monkeypatch, on_card, take):
 ])
 def test_blocked_ell_gate(n, bw, kernel):
     assert spmm.blocked_ell_profitable(n, bw) is kernel
+
+
+@pytest.mark.parametrize("n,bw,slots,kernel", [
+    (512, 8, 20000 * 79 * 8, True),          # config 4b: 1.3e7 slots
+    (8, 8, 200000 * 1172 * 8, False),        # (A2s): 1.9e9 slots
+    (8, 16, spmm.BLOCKED_ELL_MAX_SLOTS, True),
+    (8, 16, spmm.BLOCKED_ELL_MAX_SLOTS + 1, False),
+])
+def test_blocked_ell_gate_caps_the_tables(n, bw, slots, kernel):
+    assert spmm.blocked_ell_profitable(n, bw, slots) is kernel
+
+
+def test_large_tables_declined_without_conversion(monkeypatch, on_card):
+    """Past BLOCKED_ELL_MAX_SLOTS "auto" declines before building any
+    table (phase 14's (A2s) spent 53 s and 16.8 GiB converting 3e7 entries
+    into 1.9e9 slots): the product takes the COO route."""
+    A = _coo()                              # 200 x 1000: 200 * 8 * 8 slots
+    B = _data((1000, 64), 15)
+    monkeypatch.setattr(spmm, "BLOCKED_ELL_MAX_SLOTS", 200 * 8 * 8 - 1)
+    _no_conversion(monkeypatch)
+    k5 = _spy(monkeypatch, ell_spmm, "blocked_ell_matmul")
+    assert spmm._blocked_ell_or_none(A, B) is None
+    got = rt.left_spmm(A, B)
+    assert k5.launches == 0
+    assert _rel(got, A.to_dense() @ B) <= TOL
+    monkeypatch.undo()
+    monkeypatch.setattr(base, "on_card", lambda t: True)
+    monkeypatch.setattr(spmm, "BLOCKED_ELL_MAX_SLOTS", 200 * 8 * 8)
+    assert spmm._blocked_ell_or_none(_coo(), B) is not None
 
 
 def _coo(n_rows=200, n_cols=1000, nnz=600, seed=13, heavy=False,

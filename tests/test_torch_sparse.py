@@ -327,9 +327,10 @@ def test_compat_layout_helpers_match_jax():
 
 
 def test_every_port_module_imports_with_jax_blocked():
-    """Every module of the port, chip_smoke.py and the scripts beside it
-    (kernel_variants.py, the ablations, dist_smoke.py and gate_sweep.py)
-    import with jax and the JAX package blocked in sys.modules."""
+    """Every module of the port, its application tier (examples_torch/),
+    chip_smoke.py and the scripts beside it (kernel_variants.py, the
+    ablations, dist_smoke.py and gate_sweep.py) import with jax and the
+    JAX package blocked in sys.modules."""
     import os
     import subprocess
     import sys
@@ -340,8 +341,11 @@ def test_every_port_module_imports_with_jax_blocked():
         "sys.modules['jax'] = None\n"
         "sys.modules['randblas_tpu'] = None\n"
         "import randblas_tpu_torch as rt\n"
+        "import examples_torch as ex\n"
         "names = [m.name for m in pkgutil.walk_packages(rt.__path__, "
         "'randblas_tpu_torch.')]\n"
+        "names += [m.name for m in pkgutil.walk_packages(ex.__path__, "
+        "'examples_torch.')]\n"
         "for name in names + ['chip_smoke', 'kernel_variants', "
         "'fused_ablation', 'saso_ablation', 'fill_ablation', "
         "'dist_smoke', 'gate_sweep']:\n"
@@ -364,3 +368,7 @@ def test_every_port_module_imports_with_jax_blocked():
     assert {"randblas_tpu_torch.parallel.distributed",
             "randblas_tpu_torch.parallel.multihost",
             "randblas_tpu_torch.profiling"} <= names
+    # and the eleven applications, with the JAX examples' file names
+    examples = {p.stem for p in (repo / "examples").glob("*.py")}
+    assert len(examples) == 11
+    assert {f"examples_torch.{m}" for m in examples} <= names
