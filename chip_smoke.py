@@ -197,6 +197,12 @@ mesh (APP_SCALED), each with its launches (APP_LAUNCHES), its ground truth
 or its certificate, against the bounds APP_*), its time and the idle share
 of one profiled call.
 
+Phase 15 runs the port's card tier, ``python -m pytest --noconftest -q
+tests/test_torch_cuda_hardware.py`` (the counterparts of
+tests/test_tpu_hardware.py and the Hopper branches of K1-K5, each against
+its plain version), in a subprocess, prints its pass, fail and skip counts
+and its seconds, and fails the run if a test failed, erred or skipped.
+
 For K1 and K2 it also prints the launch plan
 of the main path and of (b) (tiles, thread-block cluster, grid, contraction
 splits, how many times the operator is generated, and the card's
@@ -3519,6 +3525,36 @@ def application_paths(dev, drive, card, expect):
           "set-up, checks and profiles included)")
 
 
+def card_tier(card):
+    """Phase 15: the card tier (tests/test_torch_cuda_hardware.py) in a
+    subprocess on this card, after the other phases; its counts and
+    seconds, and a failure if any test failed, erred or skipped."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    res = subprocess.run(
+        [sys.executable, "-m", "pytest", "--noconftest", "-q", "-p",
+         "no:cacheprovider", "tests/test_torch_cuda_hardware.py"],
+        cwd=root, capture_output=True, text=True)
+    seconds = time.perf_counter() - t0
+    summary = (res.stdout.strip().splitlines() or [""])[-1]
+    count = {k: int(n) for n, k in re.findall(
+        r"(\d+) (passed|failed|skipped|errors?)", summary)}
+    passed = count.get("passed", 0)
+    bad = {k: v for k, v in count.items() if k != "passed"}
+    print(f"phase 15: the card tier, tests/test_torch_cuda_hardware.py: "
+          f"{passed} passed, {count.get('failed', 0)} failed, "
+          f"{count.get('skipped', 0)} skipped, "
+          f"{count.get('error', 0) + count.get('errors', 0)} errors; "
+          f"{seconds:.1f} s (host clock, the subprocess's start included) "
+          f"[{card}]")
+    if res.returncode != 0 or bad or not passed:
+        print(res.stdout[-6000:])
+        print(res.stderr[-3000:])
+    check(res.returncode == 0 and passed and not bad,
+          f"the card tier: exit code {res.returncode}, {summary!r}")
+
+
 def profile_main(rt, S, A, card):
     """One torch.profiler window over five main-path calls: K1's device
     time per call and the share of the window in which the card ran no
@@ -4097,6 +4133,7 @@ def main():
                lambda A: lambda: rt.sketch_general(S, A, side="left"))
     torch.cuda.empty_cache()
     application_paths(dev, drive, card, APP_LAUNCHES)
+    card_tier(card)
     # launches: K1 on the main path, K2 on its backward pass (a), K3 on the
     # staged route, whose fill the K3 entry's numbers time
     k3_ms, k3_seq_ms, k3_dev_ms = k3_first["boxmul"]
