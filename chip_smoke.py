@@ -11,9 +11,10 @@ the fill kernel K3 (in both Gaussian transforms and both orientations, a
 ColMajor block's natural one through the transposed operator, bit for bit),
 the lazy fill ``fill_dense_submat``, which runs K3 on the card,
 against the plain fill (bit for bit, float32, float64 and bf16), the fused
-sketch kernels K1 and K2, the SASO sketch kernel K4 and the BlockedELL SpMM
-kernel K5 against their plain PyTorch versions on the card (K4 and K5 also
-launched twice on the same inputs and compared bit for bit), and drives
+sketch kernels K1 and K2, the SASO sketch kernel K4, the BlockedELL SpMM
+kernel K5 and the x64 fill kernel K6 against their plain PyTorch versions
+on the card (K4 and K5 also launched twice on the same inputs and compared
+bit for bit; K6 bit for bit), and drives
 these paths through the public entry points, each with the launch counts
 set to 0 just before it and read just after:
 
@@ -81,11 +82,19 @@ counts, its check, its time beside the library call's where there is one,
 and one profiled call (device busy time, idle share, top kernels):
 
 - (m) ``sketch_general`` of a ``DenseDist(1024, 65536)`` operator seeded
-  with Philox4x64, Gaussian and Uniform, on A (65536, 512) float64: the
-  native host engine fills (``dense.x64_engine_counts``), then a float64
-  matmul; no kernel. Row blocks of the native fill against the numpy
-  engine (Uniform bitwise, Gaussian within 2 ulp), Philox4x64 and
-  Threefry4x64; the product against the materialised operator's;
+  with Philox4x64, Gaussian and Uniform, on A (65536, 512) float64: K6
+  fills the operator on the card (``fill_block64_kernel`` once;
+  ``dense.x64_engine_counts`` {"card": 1}), then a float64 matmul. K6's
+  block bit for bit its plain version on the card; row blocks of K6
+  against the native and numpy host engines (Uniform bitwise, Gaussian
+  within X64_CARD_GAUSS_ULP; the engines against each other within 2
+  ulp), Philox4x64 and Threefry4x64; the product against the materialised
+  operator's; K6's times (one call, back to back, device time) beside its
+  plain version's and the host engine's fill of the same block;
+- (m') the right sketch of A (512, 65536) float64 by the ColMajor-natural
+  ``DenseDist(65536, 1024)`` seeded with Threefry2x64: K6 once, through
+  ``fill_block64_T_kernel`` (the block in math orientation), with the same
+  checks and times;
 - (n) ``nystrom_pcg`` (K1 and K3 once) and ``rpcholesky_pcg`` (no kernel)
   on A = G G^T + 0.1 I, n = 8192, d = rank = 512: the residual and x
   against a float64 solve, the PCG iterations, whether Nystrom's Cholesky
@@ -199,7 +208,7 @@ of one profiled call.
 
 Phase 15 runs the port's card tier, ``python -m pytest --noconftest -q
 tests/test_torch_cuda_hardware.py`` (the counterparts of
-tests/test_tpu_hardware.py and the Hopper branches of K1-K5, each against
+tests/test_tpu_hardware.py and the Hopper branches of K1-K6, each against
 its plain version), in a subprocess, prints its pass, fail and skip counts
 and its seconds, and fails the run if a test failed, erred or skipped.
 
@@ -222,13 +231,15 @@ and the paths with CUDA events (K3 also 20 calls back to back and by its
 device time in a torch.profiler window, in both transforms at the paths'
 shapes, its wrappers' host time per call on a 4 x 4 block, and the
 operator blocks of (f) and (g) beside the plain fill). The line before the
-last is a JSON object listing K1 to K5, each with one call's time through
+last is a JSON object listing K1 to K6, each with one call's time through
 its wrapper; K3's entry is the fill the staged route runs (1024 x 65536,
 the staged fill's transform), with the launches of that route and two more
 keys, its device time (``device_ms``) and its time a call 20 calls back to
-back (``seq_ms``). The last line is {"ok": true, "device": {...}}. Any
-failed check raises, so the exit code is non-zero and no result line is
-printed. Without a CUDA device it exits non-zero before running anything.
+back (``seq_ms``); K6's is (m)'s Gaussian fill, with the same two keys and
+(m')'s ColMajor fill under ``colmajor_*`` keys. The last line is {"ok":
+true, "device": {...}}. Any failed check raises, so the exit code is
+non-zero and no result line is printed. Without a CUDA device it exits
+non-zero before running anything.
 It imports nothing of JAX. Its timing helpers are ``kernel_variants.py``'s,
 beside it.
 """
@@ -303,6 +314,9 @@ X64_GAUSS_ULP = 2     # (m) native vs numpy Gaussian: libm's and numpy's sin,
                       # cos, log a last bit apart, then r * sin rounds once
                       # more (1 ulp is the JAX package's note, dense.py:49;
                       # 2 is what a (64, 65536) block shows on the CPU)
+X64_CARD_GAUSS_ULP = 4  # (m), (m') K6's Gaussian values vs the host engines:
+                        # CUDA's float64 sin, cos (2 ulp) and log (1 ulp)
+                        # against glibc's and numpy's, then r * sin rounds
 PCG_RES_TOL = 1e-4    # (n) ||(A + mu I) x - b|| / ||b|| (PCG stops at 1e-5)
 PCG_X_TOL = 1e-3      # (n) ||x - x64|| / ||x64||
 TRACE_CPU_TOL = 1e-4  # (o) the card's estimate vs the CPU's, relative
@@ -428,7 +442,8 @@ R4, C4, D4, NNZ4 = 20000, 10000, 512, 1_000_000   # run_all.py config 4
 KERNEL_NAMES = ("fused_sketch_T_kernel", "fused_sketch_kernel",
                 "fused_sketch_reduce_kernel", "fill_block_T_kernel",
                 "fill_block_kernel", "saso_sketch_kernel",
-                "saso_reduce_kernel", "ell_spmm_kernel")
+                "saso_reduce_kernel", "ell_spmm_kernel",
+                "fill_block64_T_kernel", "fill_block64_kernel")
 WGMMA_KERNELS = ("fused_sketch_kernel", "fused_sketch_T_kernel",
                  "saso_sketch_kernel")
 
@@ -911,10 +926,14 @@ def srht_explicit(S, dev):
     return (1 - 2 * parity).to(torch.float32) * signs[None, :]
 
 
-def breakdown(label, fn, card, top=3, warm=True):
+def breakdown(label, fn, card, top=3, warm=True, apart=None):
     """One call of ``fn`` in a torch.profiler window: the card's busy time
     against the call's wall time (the idle share), and the ``top`` kernels
-    by device time. ``warm``: one call before the window."""
+    by device time. ``warm``: one call before the window. ``apart``:
+    {kernel name: device ms a launch, measured apart} for kernels the call
+    launches once: where the trace lacks one (late in a long process it
+    has dropped the x64 fill's kernel from such windows), its time apart
+    counts as busy, and the line says so."""
     from torch.profiler import ProfilerActivity, profile
     if warm:
         fn()
@@ -929,6 +948,10 @@ def breakdown(label, fn, card, top=3, warm=True):
                       prof.key_averages()
                       if e.device_type == torch.autograd.DeviceType.CUDA),
                      reverse=True)
+    added = {n: ms for n, ms in (apart or {}).items()
+             if ms and not any(n in k for _, k in kernels)}
+    kernels = sorted(kernels + [(ms, n) for n, ms in added.items()],
+                     reverse=True)
     busy_ms = sum(ms for ms, _ in kernels)
     if busy_ms == 0:
         print(f"profiler {label}: the trace shows no device time")
@@ -936,7 +959,9 @@ def breakdown(label, fn, card, top=3, warm=True):
     heads = ", ".join(f"{name[:60]} {ms:.3f} ms"
                       for ms, name in kernels[:top])
     idle = max(0.0, 1 - busy_ms / wall_ms)
-    print(f"profiler {label}, one call: device busy {busy_ms:.3f} of "
+    note = (f" ({', '.join(added)} missing from the trace: its device time "
+            "measured apart)" if added else "")
+    print(f"profiler {label}, one call{note}: device busy {busy_ms:.3f} of "
           f"{wall_ms:.3f} ms wall (idle share {idle:.3f}); top kernels: "
           f"{heads} [{card}]")
 
@@ -1188,7 +1213,7 @@ def solver_paths(rt, dev, drive, card, seed):
     # the module, not the function of the same name that linalg exports
     sg = importlib.import_module("randblas_tpu_torch.linalg.sgmres")
     from randblas_tpu_torch.ops import fused_sketch as fs
-    from randblas_tpu_torch.rng import x64
+    from randblas_tpu_torch.ops import x64_fill
 
     gen = torch.Generator(device=dev).manual_seed(seed + 1)
 
@@ -1217,11 +1242,72 @@ def solver_paths(rt, dev, drive, card, seed):
         print(f"time {label}: {ms:.3f} ms{lib_txt} [{card}]")
         return ms
 
-    # -- (m) the x64 sketch: host fill by the native engine, float64 GEMM --
+    # -- (m) the x64 sketch: K6 fills on the card, float64 GEMM ------------
+    k6 = {}
+
+    def host_ulps(label, op_, rows, cols, fam):
+        """K6's (rows, cols) block of ``op_`` against the native and numpy
+        host engines' (Uniform bitwise, Gaussian within
+        X64_CARD_GAUSS_ULP), and the engines against each other."""
+        check(native.available(), f"{label} the native host engine did not "
+              "build (into randblas_tpu_torch/_build/)")
+        card_blk = op_.submat(rows, cols, 0, 0, device=dev).cpu().numpy()
+        native_blk = op_.submat(rows, cols, 0, 0, device="cpu").numpy()
+        with rt.flags(use_native_x64=False):
+            numpy_blk = op_.submat(rows, cols, 0, 0, device="cpu").numpy()
+
+        def ulps(got, want):
+            return float(np.max(np.abs(got - want)
+                                / np.spacing(np.abs(want))))
+        u_nn = ulps(native_blk, numpy_blk)
+        u_cn, u_cp = ulps(card_blk, native_blk), ulps(card_blk, numpy_blk)
+        gauss = fam == "Gaussian"
+        check(u_nn <= X64_GAUSS_ULP if gauss else u_nn == 0,
+              f"{label} {fam}: native vs numpy {u_nn} ulp")
+        check(max(u_cn, u_cp) <= X64_CARD_GAUSS_ULP if gauss
+              else u_cn == u_cp == 0,
+              f"{label} {fam}: K6 vs native {u_cn}, vs numpy {u_cp} ulp")
+        print(f"{label} {op_.seed_state.rng} {fam} ({rows}, {cols}) block: "
+              f"K6 vs the native engine {u_cn:.0f} ulp, vs the numpy "
+              f"engine {u_cp:.0f} ulp (Uniform bitwise, Gaussian <= "
+              f"{X64_CARD_GAUSS_ULP}); native vs numpy {u_nn:.0f} ulp "
+              f"(Gaussian <= {X64_GAUSS_ULP})")
+
+    def k6_times(label, S, rows, cols):
+        """K6 at a path's block: one call through the wrapper (CUDA
+        events), 20 calls back to back (per call), its device time
+        (torch.profiler, 20 calls), its plain version, and the host
+        engine's fill of the same block that the path ran before K6 (host
+        clock, median of 3)."""
+        def fill():
+            return x64_fill.fill_block64(S, rows, cols, device=dev)
+
+        def twenty():
+            for _ in range(20):
+                fill()
+        ms = time_ms(fill)
+        seq = time_ms(twenty) / 20
+        dms = device_ms(fill, "fill_block64")
+        plain = time_ms(lambda: x64_fill.fill_block64_reference(
+            S, rows, cols, device=dev), reps=3)
+        host = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            S.materialize(device="cpu")
+            host.append((time.perf_counter() - t0) * 1e3)
+        bnd = bound(0.0, rows * cols * 8)
+        dev_txt = ("device time not measured" if dms is None else
+                   f"device {dms:.4f} ms ({bnd[0] / dms:.0%} of the bound)")
+        print(f"time K6 {label} {rows}x{cols}: one call {ms:.4f} ms "
+              f"({bnd[0] / ms:.0%} of the bound), back to back {seq:.4f} "
+              f"ms ({bnd[0] / seq:.0%}), {dev_txt}; bound "
+              f"{bnd[0]:.4f} ms ({bnd[1]}); plain version {plain:.3f} ms; "
+              f"the host engine's fill of the block {sorted(host)[1]:.3f} "
+              f"ms (host clock) [{card}]")
+        return ms, seq, dms, plain, bnd
+
     def path_m():
         dm, mm, nm = PHASE9["m"]
-        check(native.available(), "(m) the native engine did not build "
-              "(make -C native)")
         Am = randn(mm, nm, dtype=torch.float64)
         for fam in ("Gaussian", "Uniform"):
             dist = rt.DenseDist(dm, mm, rt.DenseDistName[fam])
@@ -1229,51 +1315,84 @@ def solver_paths(rt, dev, drive, card, seed):
                                                           "philox4x64"))
             check(Sm.dtype == torch.float64, f"(m) dtype {Sm.dtype}")
             tdense.x64_engine_counts.clear()
-            Bm, _ = drive(f"(m) x64 sketch {dm}x{mm} @ {mm}x{nm}, {fam}",
-                          lambda: rt.sketch_general(Sm, Am), {})
+            Bm, got = drive(f"(m) x64 sketch {dm}x{mm} @ {mm}x{nm}, {fam}",
+                            lambda: rt.sketch_general(Sm, Am), {"K6": 1})
             routes("(m)", {"left_staged": 1})
-            check(dict(tdense.x64_engine_counts) == {"native": 1},
+            check(dict(tdense.x64_engine_counts) == {"card": 1},
                   f"(m) engines {dict(tdense.x64_engine_counts)}")
             S_mat = Sm.materialize(device=dev)
             err = rel_err(Bm, torch.matmul(S_mat, Am))
             check(err <= X64_PROD_TOL, f"(m) {fam} product: {err}")
+            want = x64_fill.fill_block64_reference(Sm, dm, mm, device=dev)
+            k6_err = abs_err(S_mat, want)
+            check(torch.equal(S_mat, want),
+                  f"(m) {fam}: K6 vs its plain version {k6_err}")
+            del want
+            print(f"(m) {fam}: K6 bitwise its plain version on the card")
             for rng, cols in (("philox4x64", mm), ("threefry4x64", 4096)):
-                st = rt.RNGState.from_key(seed + 21, rng)
                 op_ = rt.DenseSkOp(
-                    rt.DenseDist(dm, cols, rt.DenseDistName[fam]), st)
-                rows = min(64, dm)
-                got = op_.submat(rows, cols, 0, 0, device="cpu").numpy()
-                want = x64.fill_rowmajor64(cols, rows, cols, 0, st,
-                                           rt.dense.TRANSFORM[dist.family])
-                if fam == "Uniform":
-                    want = want * np.float64(math.sqrt(3.0))
-                ulps = float(np.max(np.abs(got - want)
-                                    / np.spacing(np.abs(want))))
-                check(ulps == 0 if fam == "Uniform" else ulps <= X64_GAUSS_ULP,
-                      f"(m) {rng} {fam}: native vs numpy {ulps} ulp")
-                print(f"(m) {rng} {fam} ({rows}, {cols}) block: native "
-                      f"engine vs the numpy engine {ulps:.0f} ulp (Uniform "
-                      f"bitwise, "
-                      f"Gaussian <= {X64_GAUSS_ULP})")
-            fill_ms = time_ms(lambda: Sm.materialize(device=dev))
+                    rt.DenseDist(dm, cols, rt.DenseDistName[fam]),
+                    rt.RNGState.from_key(seed + 21, rng))
+                host_ulps("(m)", op_, min(64, dm), cols, fam)
+            ms, seq, dms, plain, bnd = k6_times(f"(m) {fam}", Sm, dm, mm)
             prod_ms = time_ms(lambda: torch.matmul(S_mat, Am))
-            host = []
-            for _ in range(5):
-                t0 = time.perf_counter()
-                Sm.materialize(device="cpu")
-                host.append((time.perf_counter() - t0) * 1e3)
             call_ms = timed(f"(m) x64 sketch_general, {fam}",
                             lambda: rt.sketch_general(Sm, Am))
             print(f"(m) {fam}: vs torch.matmul of the materialised operator "
-                  f"{err:.3g} <= {X64_PROD_TOL}; the fill to the card "
-                  f"{fill_ms:.3f} ms, of it the host fill by the native "
-                  f"engine {sorted(host)[2]:.3f} ms (median of 5, host "
-                  f"clock), float64 product {prod_ms:.3f} ms, the call "
-                  f"{call_ms:.3f} ms [{card}]")
+                  f"{err:.3g} <= {X64_PROD_TOL}; K6 {ms:.3f} ms, float64 "
+                  f"product {prod_ms:.3f} ms, the call {call_ms:.3f} ms "
+                  f"[{card}]")
             if fam == "Gaussian":
+                k6.update(launches=got["K6"], err=k6_err, ms=ms, seq_ms=seq,
+                          device_ms=dms, plain_ms=plain, bound=bnd)
                 breakdown("(m) x64 sketch", lambda: rt.sketch_general(Sm, Am),
-                          card)
+                          card, apart={"fill_block64_kernel": dms})
             del S_mat, Bm
+
+    # -- (m') the ColMajor-natural x64 sketch from the right: K6's T kernel -
+    def path_m_right():
+        dm, mm, nm = PHASE9["m"]
+        # its own generator, so that the data of the paths after it are
+        # those they had before (m') was added
+        Ar = torch.randn(nm, mm, device=dev, dtype=torch.float64,
+                         generator=torch.Generator(device=dev).manual_seed(
+                             seed + 22))
+        Sr = rt.DenseSkOp(rt.DenseDist(mm, dm),
+                          rt.RNGState.from_key(seed + 22, "threefry2x64"))
+        check(rt.dist_to_layout(Sr.dist) == rt.Layout.ColMajor,
+              "(m') the operator is not ColMajor-natural")
+        tdense.x64_engine_counts.clear()
+        Br, got = drive(f"(m') x64 right sketch {nm}x{mm} @ {mm}x{dm}, "
+                        "Threefry2x64", lambda: rt.sketch_general(
+                            Sr, Ar, side="right"), {"K6": 1})
+        routes("(m')", {"right_staged": 1})
+        check(dict(tdense.x64_engine_counts) == {"card": 1},
+              f"(m') engines {dict(tdense.x64_engine_counts)}")
+        S_mat = Sr.materialize(device=dev)
+        err = rel_err(Br, torch.matmul(Ar, S_mat))
+        check(err <= X64_PROD_TOL, f"(m') product: {err}")
+        want = x64_fill.fill_block64_reference(Sr, mm, dm, device=dev)
+        k6_err = abs_err(S_mat, want)
+        check(torch.equal(S_mat, want),
+              f"(m') K6 (T) vs its plain version {k6_err}")
+        del want
+        print("(m') K6's fill_block64_T_kernel bitwise its plain version on "
+              "the card")
+        host_ulps("(m')", Sr, 4096, dm, "Gaussian")
+        ms, seq, dms, plain, _ = k6_times("(m') ColMajor, math orientation",
+                                          Sr, mm, dm)
+        call_ms = timed("(m') x64 sketch_general, right",
+                        lambda: rt.sketch_general(Sr, Ar, side="right"))
+        print(f"(m'): vs the materialised operator's product {err:.3g} <= "
+              f"{X64_PROD_TOL}; the call {call_ms:.3f} ms [{card}]")
+        k6.update(colmajor_launches=got["K6"], colmajor_err=k6_err,
+                  colmajor_ms=ms, colmajor_seq_ms=seq,
+                  colmajor_device_ms=dms,
+                  colmajor_plain_ms=plain)
+        breakdown("(m') x64 right sketch",
+                  lambda: rt.sketch_general(Sr, Ar, side="right"), card,
+                  apart={"fill_block64_T_kernel": dms})
+        del S_mat, Br
 
     # -- (n) Nystrom PCG and RPCholesky PCG -------------------------------
     def path_n():
@@ -1753,10 +1872,11 @@ def solver_paths(rt, dev, drive, card, seed):
                   f"({ref_s:.1f} s for both references) {err:.3g} <= "
                   f"{RITZ_TOL}; {ms:.3f} ms [{card}]")
 
-    for path in (path_m, path_n, path_o, path_p, path_q, path_r, path_s,
-                 path_t, path_u, path_v):
+    for path in (path_m, path_m_right, path_n, path_o, path_p, path_q,
+                 path_r, path_s, path_t, path_u, path_v):
         path()
         torch.cuda.empty_cache()
+    return k6
 
 
 def tt_svd_oracle(x, ranks):
@@ -3607,6 +3727,7 @@ def main():
     from randblas_tpu_torch.ops import ell_spmm as ell
     from randblas_tpu_torch.ops import fused_sketch as fs
     from randblas_tpu_torch.ops import saso_sketch as saso
+    from randblas_tpu_torch.ops import x64_fill
 
     dev = torch.device("cuda")
     card = sh("nvidia-smi", "--query-gpu=name,power.limit",
@@ -3638,7 +3759,7 @@ def main():
 
     counters = {"K1": fs.fused_sketch, "K2": fs.fused_sketch_colmajor,
                 "K3": fs.fill_block, "K4": saso.saso_sketch,
-                "K5": ell.blocked_ell_matmul}
+                "K5": ell.blocked_ell_matmul, "K6": x64_fill.fill_block64}
 
     def reset():
         for c in counters.values():
@@ -4123,7 +4244,7 @@ def main():
     torch.cuda.empty_cache()
     linalg_paths(rt, dev, drive, card, cli.seed)
     torch.cuda.empty_cache()
-    solver_paths(rt, dev, drive, card, cli.seed)
+    k6 = solver_paths(rt, dev, drive, card, cli.seed)
     torch.cuda.empty_cache()
     tier45_paths(rt, dev, drive, card, cli.seed)
     torch.cuda.empty_cache()
@@ -4147,7 +4268,15 @@ def main():
         entry("K3", "fill_block_kernel", "fused_sketch", 446,
               staged_launches["K3"], k3_err, k3_ms, k3_plain_ms, k3_bound,
               None, device_ms=k3_dev_ms, seq_ms=k3_seq_ms),
-    ] + sparse_kernels
+    ] + sparse_kernels + [
+        # K6 replaces the JAX package's host fill (no TPU kernel): its
+        # launches, time and bound are (m)'s Gaussian fill, its T kernel's
+        # (m')'s
+        dict(entry("K6", "fill_block64_kernel", "x64_fill", 0,
+                   k6.pop("launches"), k6.pop("err"), k6.pop("ms"),
+                   k6.pop("plain_ms"), k6.pop("bound"), None, **k6),
+             replaces="randblas_tpu/rng/x64.py:248"),
+    ]
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

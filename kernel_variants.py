@@ -47,9 +47,11 @@ def event_device_us(e):
 
 
 def device_ms(fn, name, calls=20):
-    """Device milliseconds per call of the kernels whose name holds
-    ``name``, from one torch.profiler window over ``calls`` calls of ``fn``
-    after one more (None if the trace shows no device time)."""
+    """Device milliseconds a launch of the kernels whose name holds
+    ``name`` (a call of ``fn`` launching one), from one torch.profiler
+    window over ``calls`` calls of ``fn`` after one more: the mean over the
+    launches the trace recorded, since late in a long process it may drop
+    some (None if it recorded none)."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -57,10 +59,11 @@ def device_ms(fn, name, calls=20):
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
-    us = sum(event_device_us(e) for e in prof.key_averages()
+    found = [e for e in prof.key_averages()
              if e.device_type == torch.autograd.DeviceType.CUDA
-             and name in e.key)
-    return us / calls / 1e3 if us else None
+             and name in e.key]
+    us = sum(event_device_us(e) for e in found)
+    return us / sum(e.count for e in found) / 1e3 if us else None
 
 
 def build_variants(source, variants, root):

@@ -17,8 +17,9 @@ the card unless ``device="cpu"`` is given. Also: SRHT operators
 Kronecker FJLT (``tensor``), the samplers and helpers of ``util``, groups
 1-3 of the linalg tier in ``randblas_tpu_torch.linalg``, and operators
 seeded with the 64-bit-counter generators, whose float64 values are filled
-on the host (``rng.x64``, and the native engine of ``native``). The
-package imports torch, never jax.
+on the card by K6 (``csrc/x64_fill.cu``) and on the CPU by the host
+engines (``rng.x64``, and the native engine of ``native``). The package
+imports torch, never jax.
 """
 
 from .base import Layout, MajorAxis, Op, Side

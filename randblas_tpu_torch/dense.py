@@ -14,8 +14,9 @@ Operators are lazy: ``materialize``/``submat`` fill on request, on the
 device asked for (the card unless ``device="cpu"`` is given; there through
 the fill kernel K3 where it takes the block), and the fused sketch kernels
 never store the operator. An operator seeded with a 64-bit-counter
-generator (an x64 seed) has native float64 values, filled on the host by
-the native C++ engine or its numpy copy and moved to the device asked for.
+generator (an x64 seed) has native float64 values, made on a CUDA device by
+the kernel K6 (ops/x64_fill.py) and on the CPU by the native C++ host
+engine or its numpy copy.
 """
 
 from __future__ import annotations
@@ -31,7 +32,7 @@ import torch
 
 from .base import Layout, MajorAxis, require
 from .ops.dense_fill import fill_colmajor, fill_next_state, fill_rowmajor
-from .ops import fused_sketch
+from .ops import fused_sketch, x64_fill
 from .rng.state import RNGState
 
 
@@ -45,14 +46,16 @@ class DenseDistName(enum.Enum):
 TRANSFORM = {DenseDistName.Gaussian: "boxmul",
              DenseDistName.Uniform: "uneg11"}
 
-# Host engine of the x64 (float64-stream) fill: "auto" takes the native
+# Host engine of the x64 (float64-stream) fill of a block on the CPU (on a
+# CUDA device K6 makes it, whatever this says): "auto" takes the native
 # OpenMP C++ engine (native.py) when it is built, bitwise the numpy engine
-# for Uniform values and within 1 ulp for Gaussian ones (libm's sin, cos
+# for Uniform values and within 2 ulp for Gaussian ones (libm's sin, cos
 # and log against numpy's); False always takes the numpy engine
 # (rng/x64.py).
 use_native_x64 = "auto"
 
-# how many x64 blocks each engine filled: keys "native" and "numpy"
+# how many x64 blocks each engine filled: keys "card" (K6), "native" and
+# "numpy"
 x64_engine_counts = collections.Counter()
 
 
@@ -196,11 +199,19 @@ def _rowmajor64(state: RNGState, transform: str, n_cols_parent: int,
 
 def _x64_values(dist: DenseDist, state: RNGState, n_rows: int, n_cols: int,
                 ro_s: int, co_s: int, dtype, device) -> torch.Tensor:
-    """The block of an x64 seed: native float64 values made on the host
-    (a ColMajor-natural block as the block of the transposed parent,
-    flipped, the reference's omatcopy fallback, dense_skops.hh:523-530),
-    Uniform scaled by sqrt(3) in float64, then cast to ``dtype`` on
+    """The block of an x64 seed: native float64 values, Uniform scaled by
+    sqrt(3) in float64, then cast to ``dtype`` on ``device``. On a CUDA
+    device K6 makes them there (``x64_fill``; a failed build or launch
+    raises, the block is never made on the host instead); elsewhere the
+    host engine that ``use_native_x64`` picks does (a ColMajor-natural
+    block as the block of the transposed parent, flipped, the reference's
+    omatcopy fallback, dense_skops.hh:523-530), and the block is moved to
     ``device``."""
+    if device.type == "cuda":
+        vals = x64_fill._fill64(dist, state, n_rows, n_cols, ro_s, co_s,
+                                device)
+        x64_engine_counts["card"] += 1
+        return vals.to(dtype)
     ma_len = major_axis_length(dist)
     transform = TRANSFORM[dist.family]
     if dist_to_layout(dist) == Layout.ColMajor:
@@ -234,7 +245,8 @@ def fill_dense_submat(dist: DenseDist, state: RNGState, n_rows: int,
     made in one pass by the fill kernel K3, in math orientation
     (``_kernel_fill_route``), bit for bit the plain fill; any other block
     takes the plain fill, ``fill_dense_submat_reference``. A block of an
-    x64 seed is made on the host in float64 (``_x64_values``)."""
+    x64 seed is made in float64 (``_x64_values``): by the kernel K6 on a
+    CUDA device, by a host engine on the CPU."""
     device = _checked_device(dist, n_rows, n_cols, ro_s, co_s, device)
     if state.is_x64:
         return _x64_values(dist, state, n_rows, n_cols, ro_s, co_s, dtype,
@@ -253,11 +265,14 @@ def fill_dense_submat_reference(dist: DenseDist, state: RNGState,
                                 device=None) -> torch.Tensor:
     """``fill_dense_submat`` by the plain fill (batched generator calls on
     word tensors, ops/dense_fill.py) on any device: the route's plain
-    version (an x64 seed's block is the host fill either way)."""
+    version. An x64 seed's block is K6's plain version
+    (``x64_fill.fill_block64_reference``) on ``device``, cast to
+    ``dtype``."""
     device = _checked_device(dist, n_rows, n_cols, ro_s, co_s, device)
     if state.is_x64:
-        return _x64_values(dist, state, n_rows, n_cols, ro_s, co_s, dtype,
-                           device)
+        return x64_fill._plain64(
+            x64_fill._plan64(dist, state, n_rows, n_cols, ro_s, co_s),
+            device).to(dtype)
     return _cast_and_scale(
         _plain_values(dist, state, n_rows, n_cols, ro_s, co_s, device), dist,
         dtype)

@@ -5,7 +5,7 @@ The flags: ``use_fused`` ("auto" / True / False), ``use_kernel_fill``
 (False / True) and ``use_saso_kernel`` ("auto" / True / False) live in
 ``randblas_tpu_torch.skge``; ``auto_blocked_ell`` ("auto" / True / False) in
 ``randblas_tpu_torch.sparse_data.spmm``; ``use_native_x64`` ("auto" / False,
-the x64 fill's host engine) in ``randblas_tpu_torch.dense``.
+the x64 fill's host engine on the CPU) in ``randblas_tpu_torch.dense``.
 
 "auto" takes a kernel (K1/K2, K4, K5) only on CUDA tensors, and there only
 where its gate holds: ``skge.fused_profitable``, ``skge.saso_profitable``,

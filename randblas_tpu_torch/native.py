@@ -21,7 +21,8 @@ whole one, and only the first compiles. The port never writes
 place with ``make``.
 
 The x64 fill (``fill_rowmajor64``) is what ``dense.fill_dense_submat``
-runs for an x64 seed when ``dense.use_native_x64`` allows.
+runs for an x64 seed on the CPU when ``dense.use_native_x64`` allows (on
+the card the kernel K6 fills).
 """
 
 from __future__ import annotations

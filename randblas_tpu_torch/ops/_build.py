@@ -1,9 +1,10 @@
 """Build the CUDA kernels with nvcc and bind them with ctypes.
 
 The kernels' sources are ``csrc/*.cu``: ``fused_sketch.cu`` (K1, K2, K3),
-``saso_sketch.cu`` (K4) and ``ell_spmm.cu`` (K5). Each has a plain C
-interface (no PyTorch headers), so nvcc builds it in seconds. The sources
-compile in parallel, one nvcc per source, and link into one library:
+``saso_sketch.cu`` (K4), ``ell_spmm.cu`` (K5) and ``x64_fill.cu`` (K6).
+Each has a plain C interface (no PyTorch headers), so nvcc builds it in
+seconds. The sources compile in parallel, one nvcc per source, and link
+into one library:
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
          -Xcompiler -fPIC -Xptxas -v -c -o _build/<name>.o csrc/<name>.cu
@@ -145,6 +146,10 @@ def _bind(lib):
         c_int64, c_int64, c_void_p, c_int64, c_int64, c_int, c_int64,
         ctypes.c_float, c_void_p]
     lib.rbt_ell_spmm.restype = c_int
+    lib.rbt_fill_block64.argtypes = [
+        c_void_p, c_int64, c_int64, c_int, ctypes.c_uint64,
+        ctypes.POINTER(ctypes.c_uint64), c_int, c_int, c_int, c_void_p]
+    lib.rbt_fill_block64.restype = c_int
     lib.rbt_error_string.argtypes = [c_int]
     lib.rbt_error_string.restype = ctypes.c_char_p
     return lib

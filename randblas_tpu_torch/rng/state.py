@@ -46,8 +46,8 @@ DEFAULT_RNG_X64 = "philox4x64"
 def generator_info(name: str):
     """(counter words, key words, generator function, default rounds) of a
     generator, as the JAX package's; 32-bit words (limbs) and no function
-    for the x64 generators (the host engines of rng/x64.py and native.py
-    generate them)."""
+    for the x64 generators (K6 and the host engines of rng/x64.py and
+    native.py generate them)."""
     try:
         return _GENERATORS.get(name) or _GENERATORS_X64[name]
     except KeyError:
@@ -122,8 +122,7 @@ class RNGState:
 
     @property
     def is_x64(self) -> bool:
-        """True for the 64-bit-counter generators (host-side, float64
-        streams)."""
+        """True for the 64-bit-counter generators (float64 streams)."""
         return self.rng in _GENERATORS_X64
 
     @property

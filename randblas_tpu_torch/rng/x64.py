@@ -1,13 +1,16 @@
-"""Host-side 64-bit-counter CBRNGs and the native-float64 dense fill (a
-numpy copy of randblas_tpu/rng/x64.py).
+"""The 64-bit-counter CBRNGs and the native-float64 dense fill: a numpy
+copy of randblas_tpu/rng/x64.py, and the same block functions on tensors.
 
 The reference's fill engine, instantiated with a 64-bit-counter generator,
 produces native double streams: the float width is deduced from the counter
-word size (RandBLAS/random_gen.hh:121-173; dense_skops.hh:97-170). The port
-keeps the x64 generators (Philox2x64/4x64, Threefry2x64/4x64) on the host,
-as the JAX package does: this vectorised numpy version (always available)
-and the OpenMP C++ engine of native/randblas_host.cpp, loaded by
-``randblas_tpu_torch.native``.
+word size (RandBLAS/random_gen.hh:121-173; dense_skops.hh:97-170). The JAX
+package keeps the x64 generators (Philox2x64/4x64, Threefry2x64/4x64) on
+the host, since a TPU has no 64-bit integer lanes. The port makes a block
+of such an operator on the card with the kernel K6 (ops/x64_fill.py); on
+the CPU it keeps the host engines: this vectorised numpy version (always
+available) and the OpenMP C++ engine of native/randblas_host.cpp, loaded
+by ``randblas_tpu_torch.native``. The tensor section at the end holds the
+block functions and transforms of K6's plain PyTorch version.
 
 Counter and key representation: ``RNGState`` stores 32-bit words. An x64
 state's counter is the little-endian uint32 limb view of its uint64 words
@@ -27,6 +30,9 @@ from __future__ import annotations
 import math
 
 import numpy as np
+import torch
+
+from .bits import MASK32, mulhilo32, to_signed
 
 # ---------------------------------------------------------------------------
 # uint64 block functions (vectorized over leading axes; all arithmetic
@@ -283,3 +289,159 @@ def fill_next_state64(n_cols_parent: int, n_rows_parent: int, state):
     _, w, _, _ = GENERATORS_X64[state.rng]
     per_row = -(-n_cols_parent // w)
     return state.incr(per_row * n_rows_parent)
+
+
+# ---------------------------------------------------------------------------
+# the block functions and transforms on tensors (the plain version of K6,
+# ops/x64_fill.py). A uint64 word is a pair (lo, hi) of int64 tensors
+# holding its 32-bit limbs, as RNGState stores it: int64 cannot hold a
+# 64x64 product and torch's unsigned types lack the arithmetic, so products
+# are built from bits.mulhilo32 on the limbs. Keys and constants are Python
+# ints. The same code runs on CUDA tensors.
+# ---------------------------------------------------------------------------
+
+_M64 = (1 << 64) - 1
+
+
+def _pair(c: int):
+    return c & MASK32, c >> 32
+
+
+def _xor64(a, b):
+    return a[0] ^ b[0], a[1] ^ b[1]
+
+
+def _add64(a, b):
+    lo = a[0] + b[0]
+    return lo & MASK32, (a[1] + b[1] + (lo >> 32)) & MASK32
+
+
+def _mulhilo64(a, m: int):
+    """(hi, lo) words of the 128-bit product of the word ``a`` and the
+    constant ``m``: four 32x32 products, their halves summed with carries."""
+    m0, m1 = _pair(m)
+    h00, l00 = mulhilo32(a[0], m0)
+    h01, l01 = mulhilo32(a[0], m1)
+    h10, l10 = mulhilo32(a[1], m0)
+    h11, l11 = mulhilo32(a[1], m1)
+    t1 = h00 + l01 + l10
+    t2 = h01 + h10 + l11 + (t1 >> 32)
+    return ((t2 & MASK32, (h11 + (t2 >> 32)) & MASK32),
+            (l00, t1 & MASK32))
+
+
+def _rotl64_t(x, r: int):
+    lo, hi = x
+    if r >= 32:
+        lo, hi, r = hi, lo, r - 32
+    if r == 0:
+        return lo, hi
+    return (((lo << r) | (hi >> (32 - r))) & MASK32,
+            ((hi << r) | (lo >> (32 - r))) & MASK32)
+
+
+def philox2x64_t(ctr, key, rounds: int = 10):
+    """ctr: 2 words, key: 1 int -> 2 words."""
+    x0, x1 = ctr
+    k0 = key[0]
+    for r in range(rounds):
+        if r > 0:
+            k0 = (k0 + int(_P64_W0)) & _M64
+        hi, lo = _mulhilo64(x0, int(_P2x64_M))
+        x0 = _xor64(_xor64(hi, _pair(k0)), x1)
+        x1 = lo
+    return [x0, x1]
+
+
+def philox4x64_t(ctr, key, rounds: int = 10):
+    """ctr: 4 words, key: 2 ints -> 4 words."""
+    x0, x1, x2, x3 = ctr
+    k0, k1 = key
+    for r in range(rounds):
+        if r > 0:
+            k0 = (k0 + int(_P64_W0)) & _M64
+            k1 = (k1 + int(_P64_W1)) & _M64
+        hi0, lo0 = _mulhilo64(x0, int(_P4x64_M0))
+        hi1, lo1 = _mulhilo64(x2, int(_P4x64_M1))
+        x0 = _xor64(_xor64(hi1, x1), _pair(k0))
+        x1 = lo1
+        x2 = _xor64(_xor64(hi0, x3), _pair(k1))
+        x3 = lo0
+    return [x0, x1, x2, x3]
+
+
+def threefry2x64_t(ctr, key, rounds: int = 20):
+    """ctr: 2 words, key: 2 ints -> 2 words."""
+    ks = [key[0], key[1], int(_TF64_PARITY) ^ key[0] ^ key[1]]
+    x0 = _add64(ctr[0], _pair(ks[0]))
+    x1 = _add64(ctr[1], _pair(ks[1]))
+    for r in range(rounds):
+        x0 = _add64(x0, x1)
+        x1 = _xor64(_rotl64_t(x1, _TF64_2_ROT[r % 8]), x0)
+        if (r + 1) % 4 == 0:
+            s = (r + 1) // 4
+            x0 = _add64(x0, _pair(ks[s % 3]))
+            x1 = _add64(x1, _pair((ks[(s + 1) % 3] + s) & _M64))
+    return [x0, x1]
+
+
+def threefry4x64_t(ctr, key, rounds: int = 20):
+    """ctr: 4 words, key: 4 ints -> 4 words."""
+    ks = list(key) + [int(_TF64_PARITY) ^ key[0] ^ key[1] ^ key[2] ^ key[3]]
+    x = [_add64(ctr[i], _pair(ks[i])) for i in range(4)]
+    for r in range(rounds):
+        r0, r1 = _TF64_4_R0[r % 8], _TF64_4_R1[r % 8]
+        if r % 2 == 0:
+            x[0] = _add64(x[0], x[1])
+            x[1] = _xor64(_rotl64_t(x[1], r0), x[0])
+            x[2] = _add64(x[2], x[3])
+            x[3] = _xor64(_rotl64_t(x[3], r1), x[2])
+        else:
+            x[0] = _add64(x[0], x[3])
+            x[3] = _xor64(_rotl64_t(x[3], r0), x[0])
+            x[2] = _add64(x[2], x[1])
+            x[1] = _xor64(_rotl64_t(x[1], r1), x[2])
+        if (r + 1) % 4 == 0:
+            s = (r + 1) // 4
+            for i in range(4):
+                x[i] = _add64(x[i], _pair(ks[(s + i) % 5]))
+            x[3] = _add64(x[3], _pair(s))
+    return x
+
+
+# name -> tensor block fn (ctr words, key words as ints, rounds)
+GENERATORS_X64_T = {"philox2x64": philox2x64_t, "philox4x64": philox4x64_t,
+                    "threefry2x64": threefry2x64_t,
+                    "threefry4x64": threefry4x64_t}
+
+
+def _f64_t(word, signed: bool):
+    """A word as float64, one rounding: hi * 2^32 is exact, so adding lo
+    rounds the exact value once (round-to-nearest of the word)."""
+    lo, hi = word
+    if signed:
+        hi = to_signed(hi)
+    return hi.to(torch.float64) * 2.0 ** 32 + lo.to(torch.float64)
+
+
+def u01_f64_t(word) -> torch.Tensor:
+    return _f64_t(word, False) * 2.0 ** -64 + 2.0 ** -65
+
+
+def uneg11_f64_t(word) -> torch.Tensor:
+    return _f64_t(word, True) * 2.0 ** -63 + 2.0 ** -64
+
+
+def block_values_f64_t(words, transform: str) -> list:
+    """w words -> w float64 tensors, as ``block_values_f64``: 'uneg11' maps
+    each word, 'boxmul' the pairs (2i, 2i+1) to (r sin, r cos)."""
+    if transform == "uneg11":
+        return [uneg11_f64_t(w) for w in words]
+    if transform != "boxmul":
+        raise ValueError(f"unknown transform {transform!r}")
+    out = []
+    for u0, u1 in zip(words[0::2], words[1::2]):
+        ang = uneg11_f64_t(u0) * math.pi
+        r = torch.sqrt(torch.log(u01_f64_t(u1)) * -2.0)
+        out += [torch.sin(ang) * r, torch.cos(ang) * r]
+    return out

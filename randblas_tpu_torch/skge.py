@@ -25,9 +25,9 @@ and each counted in ``route_counts``:
 
 A fused route needs a lazy operator, a Philox4x32/Threefry4x32 seed and
 float32 or bf16 data. An operator with an x64 seed (Philox/Threefry 2x64,
-4x64) therefore always takes the staged route: its block is filled on the
-host in float64 (``dense.fill_dense_submat``) and multiplied on A's
-device. On CUDA tensors ``use_fused="auto"`` takes an eligible fused route
+4x64) therefore always takes the staged route: its block is filled in
+float64 on the data's device (``dense.fill_dense_submat``: by the kernel
+K6 on the card, by a host engine on the CPU) and multiplied there. On CUDA tensors ``use_fused="auto"`` takes an eligible fused route
 where ``fused_profitable`` holds for the kernel call it makes (operator
 rows, contraction, data columns, dtype: the H100 boundaries of
 gate_sweep.py, PERF.md "H100 gates"), else the staged route; on CPU

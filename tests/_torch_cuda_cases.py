@@ -17,7 +17,7 @@ wrappers run their plain versions there, and no kernel launches).
 
 - ``COUNTERPARTS``: every test function of ``tests/test_tpu_hardware.py``
   -> the ids of the cases that port it (30 cases for 29 functions).
-- ``BRANCHES``: the Hopper branches of K1-K5, each held against its plain
+- ``BRANCHES``: the Hopper branches of K1-K6, each held against its plain
   version, with ``branch_facts`` (load mode, launch plan, slots, order)
   computed from the card-scale shapes and the recorded card's occupancy.
 - ``load_mode``: the rule of ``a_map`` in ``csrc/fused_sketch.cu`` and
@@ -49,6 +49,7 @@ from randblas_tpu_torch import skge
 from randblas_tpu_torch.ops import ell_spmm as ell
 from randblas_tpu_torch.ops import fused_sketch as fs
 from randblas_tpu_torch.ops import saso_sketch as saso
+from randblas_tpu_torch.ops import x64_fill
 from oracle import assert_componentwise_close
 
 F32_EPS = float(np.finfo(np.float32).eps)
@@ -70,13 +71,13 @@ CARD = "NVIDIA H100 80GB HBM3, 700.00 W"
 CARD_MAX_ACTIVE_CLUSTERS = {8: 15, 16: 7}
 CARD_MAX_ACTIVE_CTAS = 132
 
-KERNELS = ("K1", "K2", "K3", "K4", "K5")
+KERNELS = ("K1", "K2", "K3", "K4", "K5", "K6")
 
 
 def _wrappers():
     return {"K1": fs.fused_sketch, "K2": fs.fused_sketch_colmajor,
             "K3": fs.fill_block, "K4": saso.saso_sketch,
-            "K5": ell.blocked_ell_matmul}
+            "K5": ell.blocked_ell_matmul, "K6": x64_fill.fill_block64}
 
 
 # ------------------------------------------------------------ the checks
@@ -169,9 +170,10 @@ class PortOracle:
     """An oracle the port computed itself (``value``), which the CPU twin
     rebuilds with the JAX package from ``spec``: "dense" (a block of a
     DenseSkOp), "sparse" (a materialised SparseSkOp), "trig" (a
-    materialised TrigSkOp), "fill" (K3's plain fill), "k1", "k2" (the
-    plain K1 and K2), "k4" (the plain K4), "k5" (the plain K5) and "kfjlt"
-    (the KFJLT's signs and samples)."""
+    materialised TrigSkOp), "fill" (K3's plain fill), "fill64" (K6's plain
+    fill of an x64 seed), "k1", "k2" (the plain K1 and K2), "k4" (the
+    plain K4), "k5" (the plain K5) and "kfjlt" (the KFJLT's signs and
+    samples)."""
     kind: str
     spec: dict
     value: Any
@@ -1295,6 +1297,45 @@ FILL_BRANCHES = (
 
 
 @dataclasses.dataclass(frozen=True)
+class Fill64Branch:
+    """A (rows, cols) block at (ro, co) of the operator (shape, major) of
+    an x64 seed of ``rng`` through K6, in each family, bit for bit against
+    its plain version. A RowMajor-natural operator runs
+    fill_block64_kernel, a ColMajor-natural one fill_block64_T_kernel.
+    ``carry``: counter word 0 starts short of 2^64 by half the counters the
+    block spans, so they carry into word 1 partway through it. The CPU
+    scale takes ``_fill_geometry``'s shapes."""
+    name: str
+    shape: tuple
+    block: tuple
+    rng: str
+    major: str = "Long"
+    carry: bool = False
+
+
+# a generator a geometry, each geometry in both families: each kernel runs
+# its 8 instantiations (4 generators x 2 families)
+FILL64_BRANCHES = (
+    Fill64Branch("rows_shift3", (1024, 8192), (64, 4001, 0, 3),
+                 "philox4x64"),
+    Fill64Branch("rows_wide_stores", (1024, 8192), (1000, 3000, 7, 2),
+                 "threefry4x64"),
+    Fill64Branch("rows_carry", (512, 4096), (300, 4095, 5, 1), "philox2x64",
+                 carry=True),
+    Fill64Branch("rows_past_grid_y", (300_000, 8), (299_990, 6, 5, 2),
+                 "threefry2x64", major="Short"),
+    Fill64Branch("cols_wide_stores", (3000, 500), (2999, 400, 1, 7),
+                 "philox4x64"),
+    Fill64Branch("cols_shift2_odd", (3000, 501), (2998, 397, 2, 3),
+                 "threefry4x64"),
+    Fill64Branch("cols_carry", (5000, 64), (4999, 64, 1, 0), "philox2x64",
+                 carry=True),
+    Fill64Branch("cols_past_grid_y", (2_200_000, 3), (2_199_990, 3, 6, 0),
+                 "threefry2x64"),
+)
+
+
+@dataclasses.dataclass(frozen=True)
 class EllBranch:
     """alpha * E @ B through K5 for COO data (m, k, nnz entries seeded
     from the shapes; ``heavy``: row 3 also takes columns 0..25, 26 more
@@ -1336,6 +1377,9 @@ for _b in FILL_BRANCHES:
         BRANCHES[f"K3-{_b.name}-{_x}"] = ("K3", (_b, _x))
 for _b in ELL_BRANCHES:
     BRANCHES[f"K5-{_b.name}"] = ("K5", _b)
+for _b in FILL64_BRANCHES:
+    for _f in ("Gaussian", "Uniform"):
+        BRANCHES[f"K6-{_b.name}-{_f}"] = ("K6", (_b, _f))
 
 
 def _fused_dims(b: FusedBranch, scale):
@@ -1361,12 +1405,11 @@ def _saso_dims(b: SasoBranch, scale):
     return (b.d, b.m, b.n) if scale == "card" else (100, 300, 17)
 
 
-def _fill_geometry(b: FillBranch, scale):
-    """(operator shape, major axis, block) of a K3 branch: at the CPU
-    scale a (24, 261) block of a (40, 300) operator, or its transpose,
-    with the card's layout, family, generator and shift."""
-    dist = rt.DenseDist(*b.shape, rt.DenseDistName[b.family],
-                        rt.MajorAxis[b.major])
+def _fill_geometry(b, scale):
+    """(operator shape, major axis, block) of a K3 or K6 branch: at the
+    CPU scale a (24, 261) block of a (40, 300) operator, or its transpose,
+    with the card's layout and shift."""
+    dist = rt.DenseDist(*b.shape, major_axis=rt.MajorAxis[b.major])
     if scale == "card":
         return b.shape, b.major, b.block
     ro, co = b.block[2] % 8, b.block[3] % 8
@@ -1375,15 +1418,31 @@ def _fill_geometry(b: FillBranch, scale):
     return (40, 300), "Long", (24, 261, ro, co)
 
 
-def _fill_natural(b: FillBranch):
-    """(colmajor, natural rows, natural cols, shift) of a K3 branch at
-    its card shape."""
-    dist = rt.DenseDist(*b.shape, rt.DenseDistName[b.family],
-                        rt.MajorAxis[b.major])
+def _fill_natural(b, w=4):
+    """(colmajor, natural rows, natural cols, shift) of a K3 or K6 branch
+    at its card shape, with w values a counter block."""
+    dist = rt.DenseDist(*b.shape, major_axis=rt.MajorAxis[b.major])
     rows, cols, ro, co = b.block
     if rt.dist_to_layout(dist) == rt.Layout.ColMajor:
-        return True, cols, rows, ro % 4
-    return False, rows, cols, co % 4
+        return True, cols, rows, ro % w
+    return False, rows, cols, co % w
+
+
+def _fill64_facts(b: Fill64Branch, family) -> dict:
+    """K6's kernel, generator, family, shift, store width (16-byte where
+    the launcher's ``vec`` holds for an aligned output), carry and whether
+    its loop passes grid.y's 65535 (natural: row pairs; transposed: 8
+    counter blocks a CTA), at the card shape."""
+    w = rt.RNGState.from_key(0, b.rng).block_width
+    colmajor, rows, cols, shift = _fill_natural(b, w)
+    if colmajor:
+        nblk = -(-(shift + cols) // w)
+        return dict(kernel="fill_block64_T_kernel", rng=b.rng, family=family,
+                    shift=shift, wide_stores=rows % 2 == 0, carry=b.carry,
+                    past_grid_y=-(-nblk // 8) > 65535)
+    return dict(kernel="fill_block64_kernel", rng=b.rng, family=family,
+                shift=shift, wide_stores=shift % 2 == 0 and cols % 2 == 0,
+                carry=b.carry, past_grid_y=-(-rows // 2) > 65535)
 
 
 def _ell_dims(b: EllBranch, scale):
@@ -1430,6 +1489,8 @@ def branch_facts(bid: str, max_active=None, max_ctas=None) -> dict:
         plan = saso.launch_plan(b.d, b.m, b.n, max_ctas)
         return dict(mode=load_mode(a), kmax=8 if b.k <= 8 else 16,
                     splits=plan.splits)
+    if kernel == "K6":
+        return _fill64_facts(*b)
     if kernel == "K3":
         b, transform = b
         colmajor, rows, cols, shift = _fill_natural(b)
@@ -1507,6 +1568,32 @@ def _branch_fill(b: FillBranch, transform, device, scale):
                      {"K3": 1}, oracles=[orc])
 
 
+def _branch_fill64(b: Fill64Branch, family, device, scale):
+    shape, major, block = _fill_geometry(b, scale)
+    dist = rt.DenseDist(*shape, rt.DenseDistName[family], rt.MajorAxis[major])
+    state = rt.RNGState.from_key(len(b.name), b.rng)
+    if b.carry:  # word 0 wraps halfway through the block's counters
+        p = x64_fill._plan64(dist, state, *block)
+        span = (p.first.counter[0] | p.first.counter[1] << 32) \
+            + p.rows * p.ctr_stride // 2
+        words = [2 ** 64 - span, 7] + [0] * (p.w - 2)
+        state = rt.RNGState.from_arrays(
+            [v >> s & 0xFFFFFFFF for v in words for s in (0, 32)],
+            state.key, b.rng)
+    S = rt.DenseSkOp(dist, state)
+    with Tally() as t:
+        got = x64_fill.fill_block64(S, *block, device=device)
+    want = x64_fill.fill_block64_reference(S, *block, device=device)
+    spec = dict(shape=shape, family=family, major=major,
+                state=state.to_dict(), block=block)
+    return t.outcome([holds("K6's block is contiguous float64",
+                            got.is_contiguous()
+                            and got.dtype == torch.float64),
+                      equal("K6 vs its plain version", got, want)],
+                     {"K6": 1}, oracles=[PortOracle("fill64", spec,
+                                                    as_np(want))])
+
+
 def _branch_ell(b: EllBranch, device, scale):
     m, k, n, r, c, v = _ell_coo(b, scale)
     word_major = 0 if b.order == "plain" else 4
@@ -1534,12 +1621,14 @@ def run_branch(bid: str, device, scale) -> Outcome:
         return _branch_saso(b, device, scale)
     if kernel == "K3":
         return _branch_fill(*b, device, scale)
+    if kernel == "K6":
+        return _branch_fill64(*b, device, scale)
     return _branch_ell(b, device, scale)
 
 
 def declared_facts(bid: str) -> dict:
-    """The facts a branch declares for the recorded card (K3's and K5's
-    follow from the shapes alone)."""
+    """The facts a branch declares for the recorded card (K3's, K5's and
+    K6's follow from the shapes alone)."""
     kernel, b = BRANCHES[bid]
     if kernel in ("K1", "K2"):
         return dict(mode=b.mode, cluster=b.cluster, splits=b.splits)
@@ -1587,6 +1676,14 @@ def grid_reach(max_active=None, max_ctas=None) -> dict:
                 else "4-byte")
             add(f"{name} tile", f["tile"])
             add(f"{name} past grid.y", f["past_grid_y"])
+        elif kernel == "K6":
+            name = f["kernel"]
+            add("kernel x rng x family", (name, f["rng"], f["family"]))
+            add(f"{name} shift", "0" if f["shift"] == 0 else ">0")
+            add(f"{name} stores", "16-byte" if f["wide_stores"]
+                else "8-byte")
+            add(f"{name} carry", f["carry"])
+            add(f"{name} past grid.y", f["past_grid_y"])
         else:
             add("bw", f["bw"])
             add("n", "1" if f["n"] == 1 else ">1")
@@ -1604,7 +1701,9 @@ def grid_required(max_active=None) -> dict:
     k in {1, 8, 16} (both KMAX) and bf16; K3's two kernels in both
     transforms, each with a shift, both store widths, its tiles and row
     tiles past grid.y; K5's bw 8 and 32, n = 1, every order, alpha != 1
-    and bf16 B."""
+    and bf16 B; K6's two kernels in each generator and family, each with
+    and without a shift, both store widths, a carry past counter word 0
+    and its loop past grid.y."""
     max_active = CARD_MAX_ACTIVE_CLUSTERS if max_active is None \
         else max_active
     modes = {"tma_rows", "tma_cols", "direct"}
@@ -1631,6 +1730,15 @@ def grid_required(max_active=None) -> dict:
         need[("K3", f"{k} stores")] = {"16-byte", "4-byte"}
         need[("K3", f"{k} past grid.y")] = {False, True}
     need[("K3", "fill_block_T_kernel tile")] = {"4x256", "32x32"}
+    kernels64 = ("fill_block64_kernel", "fill_block64_T_kernel")
+    need[("K6", "kernel x rng x family")] = {
+        (k, g, f) for k in kernels64 for g in x64_fill.GEN_CODES
+        for f in ("Gaussian", "Uniform")}
+    for k in kernels64:
+        need[("K6", f"{k} shift")] = {"0", ">0"}
+        need[("K6", f"{k} stores")] = {"16-byte", "8-byte"}
+        need[("K6", f"{k} carry")] = {False, True}
+        need[("K6", f"{k} past grid.y")] = {False, True}
     need.update({("K5", "bw"): {8, 32}, ("K5", "n"): {"1", ">1"},
                  ("K5", "order"): {"plain", "storage", "natural"},
                  ("K5", "alpha"): {"1", "other"},

@@ -4,18 +4,20 @@ its cases, tests/_torch_cuda_cases.py):
 - completeness: ``COUNTERPARTS`` maps every test function of
   tests/test_tpu_hardware.py (found by ``ast``) to the cases that port it;
 - branch coverage: the branch grid reaches every load mode, cluster size,
-  split count, K4 KMAX, K3 kernel and transform and K5 order and slot
-  width it lists (``grid_required``) with the occupancy the recorded card
-  reported, and each branch declares the facts its shapes give there;
+  split count, K4 KMAX, K3 kernel and transform, K5 order and slot width
+  and K6 kernel, generator and family it lists (``grid_required``) with
+  the occupancy the recorded card reported, and each branch declares the
+  facts its shapes give there;
 - twins: every case at ``scale="cpu"`` on CPU tensors, where the wrappers
   run their plain versions, against the same checks, with no kernel
   launched; each oracle the port computed itself (a materialised
-  operator, the plain fill, the plain K1, K2, K4 or K5) is held against
-  the JAX package's counterpart at the same seed: Uniform values and
-  sparse operators bit for bit, Gaussian values within the cross-platform
-  tolerance (rtol = atol = 2e-3, rng/transforms.py), products normalised
-  by max |want| within 1e-4 (K1, K2; 1e-2 for bf16 data) and 1e-5 (K4,
-  K5), the JAX kernels in interpret mode;
+  operator, the plain fill, the plain K1, K2, K4, K5 or K6) is held
+  against the JAX package's counterpart at the same seed: Uniform values
+  and sparse operators bit for bit, Gaussian values within the
+  cross-platform tolerance (rtol = atol = 2e-3, rng/transforms.py; K6's
+  float64 ones within X64_GAUSS_ULP of the JAX host engine), products
+  normalised by max |want| within 1e-4 (K1, K2; 1e-2 for bf16 data) and
+  1e-5 (K4, K5), the JAX kernels in interpret mode;
 - import boundary: the cases and the card tier import with jax and the
   JAX package blocked.
 """
@@ -39,6 +41,8 @@ import _torch_cuda_cases as cases
 
 TESTS = Path(__file__).resolve().parent
 GAUSS_TOL = dict(rtol=2e-3, atol=2e-3)   # cross-platform transcendentals
+X64_GAUSS_ULP = 4   # torch's float64 sin, cos, log on the CPU vs the JAX
+                    # host engine's (test_torch_x64_fill.py)
 CPU = torch.device("cpu")
 
 
@@ -132,6 +136,17 @@ def jax_agrees(orc: cases.PortOracle):
                                         ro, co)
         _values_close(np.asarray(value), np.asarray(want),
                       s["family"] == "Gaussian")
+    elif orc.kind == "fill64":
+        rows, cols, ro, co = s["block"]
+        jS = _dense(s)
+        want = np.asarray(rb.fill_dense_submat(jS.dist, jS.seed_state, rows,
+                                               cols, ro, co, jnp.float64))
+        assert value.shape == want.shape, (value.shape, want.shape)
+        if s["family"] == "Gaussian":
+            ulps = np.abs(value - want) / np.spacing(np.abs(want))
+            assert ulps.max() <= X64_GAUSS_ULP, ulps.max()
+        else:
+            np.testing.assert_array_equal(value, want)
     elif orc.kind == "sparse":
         want = _sparse_materialize(tuple(s["shape"]), s["k"], s["major"])(
             rb.RNGState.from_dict(s["state"]))

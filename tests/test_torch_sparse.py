@@ -357,9 +357,10 @@ def test_every_port_module_imports_with_jax_blocked():
     assert res.returncode == 0, res.stderr
     names = set(res.stdout.split())
     assert len(names) >= 30
-    # the host engines and the linalg modules of groups 2 to 5 among them
-    assert {"randblas_tpu_torch.native", "randblas_tpu_torch.rng.x64"} \
-        <= names
+    # the host engines, the x64 fill kernel's wrapper and the linalg
+    # modules of groups 2 to 5 among them
+    assert {"randblas_tpu_torch.native", "randblas_tpu_torch.rng.x64",
+            "randblas_tpu_torch.ops.x64_fill"} <= names
     assert {f"randblas_tpu_torch.linalg.{m}" for m in (
         "features", "leverage", "trace", "nystrom", "eigh", "rpcholesky",
         "amm", "qrcp", "krylov", "sgmres", "spectral", "rgs", "streaming",
