@@ -89,8 +89,13 @@ and one profiled call (device busy time, idle share, top kernels):
   against the native and numpy host engines (Uniform bitwise, Gaussian
   within X64_CARD_GAUSS_ULP; the engines against each other within 2
   ulp), Philox4x64 and Threefry4x64; the product against the materialised
-  operator's; K6's times (one call, back to back, device time) beside its
-  plain version's and the host engine's fill of the same block;
+  operator's; K6's times (one call, back to back, device time: CUDA
+  events around 20 launches queued while the card sleeps) beside its
+  plain version's and the host engine's fill of the same block, and its
+  bound, the larger of the bytes written and the operations bound of
+  ``kernel_variants.k6_census`` of the built kernel's SASS (the busiest
+  arithmetic pipe at the card's maximum SM clock; the time to issue every
+  instruction printed beside it, not as a bound);
 - (m') the right sketch of A (512, 65536) float64 by the ColMajor-natural
   ``DenseDist(65536, 1024)`` seeded with Threefry2x64: K6 once, through
   ``fill_block64_T_kernel`` (the block in math orientation), with the same
@@ -235,13 +240,14 @@ last is a JSON object listing K1 to K6, each with one call's time through
 its wrapper; K3's entry is the fill the staged route runs (1024 x 65536,
 the staged fill's transform), with the launches of that route and two more
 keys, its device time (``device_ms``) and its time a call 20 calls back to
-back (``seq_ms``); K6's is (m)'s Gaussian fill, with the same two keys and
-(m')'s ColMajor fill under ``colmajor_*`` keys. The last line is {"ok":
+back (``seq_ms``); K6's is (m)'s Gaussian fill, with the same two keys (its
+device time by CUDA events) and (m')'s ColMajor fill under ``colmajor_*``
+keys, its bound max(bytes, operations). The last line is {"ok":
 true, "device": {...}}. Any failed check raises, so the exit code is
 non-zero and no result line is printed. Without a CUDA device it exits
 non-zero before running anything.
-It imports nothing of JAX. Its timing helpers are ``kernel_variants.py``'s,
-beside it.
+It imports nothing of JAX. Its timing and census helpers are
+``kernel_variants.py``'s, beside it.
 """
 
 import argparse
@@ -255,7 +261,9 @@ import time
 import numpy as np
 import torch
 
-from kernel_variants import device_ms, event_device_us, time_ms
+from kernel_variants import (device_ms, event_device_us, issue_ms, k6_census,
+                             k6_values_per_iter, launch_ms, max_sm_clock,
+                             operations_bound, sass_of, time_ms)
 
 D, M, N = 1024, 65536, 4096          # the main path's shape
 R2, C2, D2 = 16384, 16384, 1024      # run_all.py config 2: A2 (R2, C2), d
@@ -536,13 +544,10 @@ def bound(flops, nbytes, peak=PEAK_BF16):
 def sass_check(library):
     """Whether each K1/K2/K4 instantiation in the built library's SASS runs its
     product on HGMMA (wgmma), by cuobjdump where the toolkit has it."""
-    from randblas_tpu_torch.ops import _build
-    tool = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
-    if not os.path.isfile(tool):
+    sass = sass_of(library)
+    if sass is None:
         print("cuobjdump not found: HGMMA not checked")
         return
-    sass = subprocess.run([tool, "-sass", str(library)], capture_output=True,
-                          text=True, check=True).stdout
     found = {}
     for block in sass.split("Function : ")[1:]:
         head = block.split("\n", 1)[0]
@@ -933,7 +938,8 @@ def breakdown(label, fn, card, top=3, warm=True, apart=None):
     {kernel name: device ms a launch, measured apart} for kernels the call
     launches once: where the trace lacks one (late in a long process it
     has dropped the x64 fill's kernel from such windows), its time apart
-    counts as busy, and the line says so."""
+    counts as busy, and the line says so. A trace with no kernel of the
+    call measures nothing: the line says "not measured"."""
     from torch.profiler import ProfilerActivity, profile
     if warm:
         fn()
@@ -948,14 +954,15 @@ def breakdown(label, fn, card, top=3, warm=True, apart=None):
                       prof.key_averages()
                       if e.device_type == torch.autograd.DeviceType.CUDA),
                      reverse=True)
+    if not kernels:
+        print(f"profiler {label}: device busy and idle share not measured "
+              f"(the trace recorded no kernel of the call) [{card}]")
+        return
     added = {n: ms for n, ms in (apart or {}).items()
              if ms and not any(n in k for _, k in kernels)}
     kernels = sorted(kernels + [(ms, n) for n, ms in added.items()],
                      reverse=True)
     busy_ms = sum(ms for ms, _ in kernels)
-    if busy_ms == 0:
-        print(f"profiler {label}: the trace shows no device time")
-        return
     heads = ", ".join(f"{name[:60]} {ms:.3f} ms"
                       for ms, name in kernels[:top])
     idle = max(0.0, 1 - busy_ms / wall_ms)
@@ -1244,6 +1251,30 @@ def solver_paths(rt, dev, drive, card, seed):
 
     # -- (m) the x64 sketch: K6 fills on the card, float64 GEMM ------------
     k6 = {}
+    census = {}
+
+    def k6_operations(kernel, S, values):
+        """(ms, text): the operations bound of K6's instantiation for S at
+        ``values`` values, from the census of the built library's SASS
+        (the busiest arithmetic pipe) at the card's maximum SM clock, and
+        a text naming that pipe and the time to issue every instruction
+        (a diagnostic, not a bound); None where the toolkit has no
+        cuobjdump."""
+        from randblas_tpu_torch.ops import _build
+        if not census:
+            sass = sass_of(_build.LIBRARY)
+            if sass is None:
+                return None
+            text = (_build._PKG / "csrc" / "x64_fill.cu").read_text()
+            census.update(k6_census(sass, k6_values_per_iter(text)),
+                          sm_hz=max_sm_clock())
+        gauss = S.dist.family == rt.DenseDistName.Gaussian
+        per_value = census[(kernel, S.seed_state.rng, gauss)]["per_value"]
+        hz = census["sm_hz"]
+        ms, pipe = operations_bound(per_value, values, hz)
+        issue = issue_ms(per_value, values, hz)
+        return ms, (f"{pipe} at {hz / 1e6:.0f} MHz; issuing every "
+                    f"instruction {issue:.4f} ms, not a bound")
 
     def host_ulps(label, op_, rows, cols, fam):
         """K6's (rows, cols) block of ``op_`` against the native and numpy
@@ -1273,12 +1304,14 @@ def solver_paths(rt, dev, drive, card, seed):
               f"{X64_CARD_GAUSS_ULP}); native vs numpy {u_nn:.0f} ulp "
               f"(Gaussian <= {X64_GAUSS_ULP})")
 
-    def k6_times(label, S, rows, cols):
+    def k6_times(label, S, rows, cols, kernel):
         """K6 at a path's block: one call through the wrapper (CUDA
         events), 20 calls back to back (per call), its device time
-        (torch.profiler, 20 calls), its plain version, and the host
-        engine's fill of the same block that the path ran before K6 (host
-        clock, median of 3)."""
+        (kernel_variants.launch_ms: CUDA events around 20 launches queued
+        while the card sleeps), its plain version, and the host engine's
+        fill of the same block that the path ran before K6 (host clock,
+        median of 3); its bound the larger of the bytes written and the
+        operations bound of the census of the built kernel's SASS."""
         def fill():
             return x64_fill.fill_block64(S, rows, cols, device=dev)
 
@@ -1287,7 +1320,7 @@ def solver_paths(rt, dev, drive, card, seed):
                 fill()
         ms = time_ms(fill)
         seq = time_ms(twenty) / 20
-        dms = device_ms(fill, "fill_block64")
+        dms = launch_ms(fill)
         plain = time_ms(lambda: x64_fill.fill_block64_reference(
             S, rows, cols, device=dev), reps=3)
         host = []
@@ -1296,12 +1329,17 @@ def solver_paths(rt, dev, drive, card, seed):
             S.materialize(device="cpu")
             host.append((time.perf_counter() - t0) * 1e3)
         bnd = bound(0.0, rows * cols * 8)
-        dev_txt = ("device time not measured" if dms is None else
-                   f"device {dms:.4f} ms ({bnd[0] / dms:.0%} of the bound)")
+        ops = k6_operations(kernel, S, rows * cols)
+        if ops is not None and ops[0] > bnd[0]:
+            bnd = (ops[0], "operations")
+        ops_txt = ("operations not counted (no cuobjdump)" if ops is None
+                   else f"operations {ops[0]:.4f} ms ({ops[1]})")
+        dev_txt = f"device {dms:.4f} ms ({bnd[0] / dms:.0%} of the bound)"
         print(f"time K6 {label} {rows}x{cols}: one call {ms:.4f} ms "
               f"({bnd[0] / ms:.0%} of the bound), back to back {seq:.4f} "
               f"ms ({bnd[0] / seq:.0%}), {dev_txt}; bound "
-              f"{bnd[0]:.4f} ms ({bnd[1]}); plain version {plain:.3f} ms; "
+              f"{bnd[0]:.4f} ms ({bnd[1]}; {ops_txt}); plain version "
+              f"{plain:.3f} ms; "
               f"the host engine's fill of the block {sorted(host)[1]:.3f} "
               f"ms (host clock) [{card}]")
         return ms, seq, dms, plain, bnd
@@ -1334,7 +1372,8 @@ def solver_paths(rt, dev, drive, card, seed):
                     rt.DenseDist(dm, cols, rt.DenseDistName[fam]),
                     rt.RNGState.from_key(seed + 21, rng))
                 host_ulps("(m)", op_, min(64, dm), cols, fam)
-            ms, seq, dms, plain, bnd = k6_times(f"(m) {fam}", Sm, dm, mm)
+            ms, seq, dms, plain, bnd = k6_times(f"(m) {fam}", Sm, dm, mm,
+                                                "fill_block64_kernel")
             prod_ms = time_ms(lambda: torch.matmul(S_mat, Am))
             call_ms = timed(f"(m) x64 sketch_general, {fam}",
                             lambda: rt.sketch_general(Sm, Am))
@@ -1379,8 +1418,9 @@ def solver_paths(rt, dev, drive, card, seed):
         print("(m') K6's fill_block64_T_kernel bitwise its plain version on "
               "the card")
         host_ulps("(m')", Sr, 4096, dm, "Gaussian")
-        ms, seq, dms, plain, _ = k6_times("(m') ColMajor, math orientation",
-                                          Sr, mm, dm)
+        ms, seq, dms, plain, bnd = k6_times(
+            "(m') ColMajor, math orientation", Sr, mm, dm,
+            "fill_block64_T_kernel")
         call_ms = timed("(m') x64 sketch_general, right",
                         lambda: rt.sketch_general(Sr, Ar, side="right"))
         print(f"(m'): vs the materialised operator's product {err:.3g} <= "
@@ -1388,7 +1428,8 @@ def solver_paths(rt, dev, drive, card, seed):
         k6.update(colmajor_launches=got["K6"], colmajor_err=k6_err,
                   colmajor_ms=ms, colmajor_seq_ms=seq,
                   colmajor_device_ms=dms,
-                  colmajor_plain_ms=plain)
+                  colmajor_plain_ms=plain, colmajor_bound_ms=bnd[0],
+                  colmajor_bound_by=bnd[1])
         breakdown("(m') x64 right sketch",
                   lambda: rt.sketch_general(Sr, Ar, side="right"), card,
                   apart={"fill_block64_T_kernel": dms})

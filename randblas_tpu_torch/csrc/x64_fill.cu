@@ -31,20 +31,47 @@
 // (glibc's or numpy's libm) Gaussian values differ by a few ulp. Build
 // without --use_fast_math.
 //
-// What bounds K6 on the H100, and what this design does about it:
+// What bounds K6 on the H100, and what this design does about it
+// (x64_ablation.py: the census of this source's SASS by pipe class,
+// NVIDIA's published per-SM rates, 132 SMs at the maximum SM clock, 1980
+// MHz; moves count in no pipe):
 // - Bytes. It reads nothing and writes rows * cols doubles once: 0.160 ms
-//   for 1024 x 65536 at 3.35 TB/s.
-// - Operations. A counter block per W values: ten rounds of one (2x64) or
-//   two (4x64) 64 x 64 -> 128-bit products, each several 32-bit IMADs
-//   (Philox), or twenty rounds of 64-bit adds, rotates and xors (Threefry);
-//   for Gaussian values a log, a sqrt, a sin and a cos in float64 per two
-//   values, on the FP64 pipe. This may well take longer than the stores, so
-//   each thread makes two rows' blocks, two independent chains the
-//   scheduler interleaves, and the stores need no barrier.
+//   for 1024 x 65536 at 3.35 TB/s. This bounds the natural kernel's
+//   Gaussian and Uniform fills: a Philox4x64 Gaussian value takes 35.75
+//   integer ALU, 28.25 IMAD and 33.5 FP64 operations in the main loop,
+//   0.143 ms on the busiest pipe (the ALU); a Uniform value 27.9 ALU and
+//   26 IMAD, 0.112 ms.
+// - The ALU pipe. The Threefry2x64 T kernel's 64-bit adds, rotates and
+//   xors, with its compares and address arithmetic: 85.5 a value, 0.343
+//   ms, its bound.
+// - What holds it back: issue. A Gaussian value takes 163 instructions,
+//   22 moves and 25 uniform-datapath moves (UMOV: the transform's float64
+//   constants, materialised at each use inside the math library) among
+//   them, so the four schedulers of an SM need 0.327 ms for the block
+//   (T kernel: 192.5, 0.386 ms). That is a property of this code, not a
+//   bound of the function: the generator's and the transform's
+//   instructions share the issue slots, so their times add. Generating
+//   alone (no stores) takes 0.236 ms for Uniform, above its 73
+//   instructions' 0.146 ms to issue: the 64-bit products (IMAD.WIDE,
+//   about 21 a value) appear to hold the IMAD pipe for two cycles, which
+//   the census' one-a-cycle rate does not count.
+// - So the design cuts instructions and keeps more independent work in
+//   flight: one sincos a Box-Muller pair in place of sin and cos, which
+//   share the argument reduction (bit for bit the two calls: 11 FP64 and
+//   19 other instructions less a pair); two counter blocks a thread in the
+//   T kernel, X64_TY apart, four chains where it had two. Measured and not
+//   kept (x64_ablation.py's exact variants): Philox's 128-bit product from
+//   four explicit 32 x 32 -> 64-bit products (more instructions than
+//   __umul64hi beside the low product), one, three or four rows a thread
+//   in the natural kernel (two is fastest), 128-thread CTAs (within 1%),
+//   a register cap that spills, and four-word rows staged through shared memory
+//   (each warp store 512 contiguous bytes: slower when generating sets
+//   the pace, though it made a store-bound variant 3x faster).
 // - Natural orientation: threads run along the counter blocks of a row, so
 //   a warp writes 32 W consecutive values of one row. Lane pairs (0, 1) and
 //   (2, 3) are 16-byte stores where they land on 16-byte boundaries (shift
-//   and cols even, `out` aligned), 8-byte stores otherwise.
+//   and cols even, `out` aligned), 8-byte stores otherwise. X64_ROWS rows
+//   a thread.
 // - Transposed orientation: threads run along the natural rows. A block's W
 //   values go to W output rows at one column r, and the 32 lanes of a warp
 //   hold 64 consecutive natural rows, so each store instruction writes 512
@@ -67,8 +94,10 @@ constexpr int kThreefry2x64 = 2;
 constexpr int kThreefry4x64 = 3;
 
 constexpr int X64_THREADS = 256;
+constexpr int X64_ROWS = 2;                     // rows a thread (natural)
 constexpr int X64_TX = 32;                      // T: lanes along row pairs
-constexpr int X64_TY = X64_THREADS / X64_TX;    // T: counter blocks a CTA
+constexpr int X64_TY = X64_THREADS / X64_TX;    // T: counter blocks a step
+constexpr int X64_T_BLOCKS = 2;                 // T: blocks a thread
 constexpr int64_t MAX_GRID_Y = 65535;
 constexpr double kPi64 = 3.141592653589793;     // the double nearest pi
 constexpr double kSqrt3_64 = 1.7320508075688772;
@@ -208,8 +237,10 @@ __device__ __forceinline__ void boxmul64(uint64_t a, uint64_t b, double& x,
                                          double& y) {
   const double ang = __dmul_rn(kPi64, uneg11_64(a));
   const double r = sqrt(__dmul_rn(-2.0, log(u01_64(b))));
-  x = __dmul_rn(sin(ang), r);
-  y = __dmul_rn(cos(ang), r);
+  double s, c;
+  sincos(ang, &s, &c);
+  x = __dmul_rn(s, r);
+  y = __dmul_rn(c, r);
 }
 
 // the W values of the counter block at seed.c + off (carried across words)
@@ -243,14 +274,15 @@ fill_block64_kernel(double* __restrict__ out, int64_t rows, int64_t cols,
   const int64_t b = (int64_t)blockIdx.x * X64_THREADS + threadIdx.x;
   const int64_t c0 = b * W - shift;  // the output column of lane 0
   if (c0 >= cols) return;
-  for (int64_t r0 = 2 * (int64_t)blockIdx.y; r0 < rows;
-       r0 += 2 * (int64_t)gridDim.y) {
-    double v[2][W];
+  for (int64_t r0 = X64_ROWS * (int64_t)blockIdx.y; r0 < rows;
+       r0 += X64_ROWS * (int64_t)gridDim.y) {
+    double v[X64_ROWS][W];
     const uint64_t off = (uint64_t)r0 * ctr_stride + (uint64_t)b;
-    values64<GEN, GAUSS>(seed, off, v[0]);  // a row past the edge: never
-    values64<GEN, GAUSS>(seed, off + ctr_stride, v[1]);  // stored
 #pragma unroll
-    for (int k = 0; k < 2; ++k) {
+    for (int k = 0; k < X64_ROWS; ++k)  // a row past the edge: never stored
+      values64<GEN, GAUSS>(seed, off + (uint64_t)k * ctr_stride, v[k]);
+#pragma unroll
+    for (int k = 0; k < X64_ROWS; ++k) {
       if (r0 + k >= rows) break;
       double* o = out + (r0 + k) * cols;
       if (vec) {  // c even, cols even: a pair is all in or all out
@@ -278,25 +310,32 @@ __global__ void __launch_bounds__(X64_THREADS)
 fill_block64_T_kernel(double* __restrict__ out, int64_t rows, int64_t cols,
                       int shift, uint64_t ctr_stride, Seed64 seed, int vec) {
   constexpr int W = width(GEN);
+  constexpr int64_t STEP = X64_TY * X64_T_BLOCKS;  // counter blocks a CTA
   const int64_t r0 = 2 * ((int64_t)blockIdx.x * X64_TX + threadIdx.x);
   if (r0 >= rows) return;
-  for (int64_t b = (int64_t)blockIdx.y * X64_TY + threadIdx.y;
-       b * W - shift < cols; b += (int64_t)gridDim.y * X64_TY) {
-    double v[2][W];
-    const uint64_t off = (uint64_t)r0 * ctr_stride + (uint64_t)b;
-    values64<GEN, GAUSS>(seed, off, v[0]);
-    values64<GEN, GAUSS>(seed, off + ctr_stride, v[1]);
-    const int64_t c0 = b * W - shift;
+  for (int64_t b0 = (int64_t)blockIdx.y * STEP + threadIdx.y;
+       b0 * W - shift < cols; b0 += (int64_t)gridDim.y * STEP) {
+    double v[2 * X64_T_BLOCKS][W];  // row r0 + k of block b0 + j TY: 2 j + k
 #pragma unroll
-    for (int l = 0; l < W; ++l) {
-      const int64_t c = c0 + l;
-      if (c < 0 || c >= cols) continue;
-      double* o = out + c * rows + r0;
-      if (vec) {  // rows even: r0 + 1 < rows
-        *reinterpret_cast<double2*>(o) = make_double2(v[0][l], v[1][l]);
-      } else {
-        o[0] = v[0][l];
-        if (r0 + 1 < rows) o[1] = v[1][l];
+    for (int i = 0; i < 2 * X64_T_BLOCKS; ++i)  // a block past the edge:
+      values64<GEN, GAUSS>(                    // never stored
+          seed, (uint64_t)(r0 + i % 2) * ctr_stride
+          + (uint64_t)(b0 + i / 2 * X64_TY), v[i]);
+#pragma unroll
+    for (int j = 0; j < X64_T_BLOCKS; ++j) {
+      const int64_t c0 = (b0 + j * X64_TY) * W - shift;
+#pragma unroll
+      for (int l = 0; l < W; ++l) {
+        const int64_t c = c0 + l;
+        if (c < 0 || c >= cols) continue;
+        double* o = out + c * rows + r0;
+        if (vec) {  // rows even: r0 + 1 < rows
+          *reinterpret_cast<double2*>(o) = make_double2(v[2 * j][l],
+                                                        v[2 * j + 1][l]);
+        } else {
+          o[0] = v[2 * j][l];
+          if (r0 + 1 < rows) o[1] = v[2 * j + 1][l];
+        }
       }
     }
   }
@@ -313,7 +352,7 @@ cudaError_t launch64(double* out, int64_t rows, int64_t cols, int shift,
   const bool aligned = (reinterpret_cast<uintptr_t>(out) & 15) == 0;
   if (!transposed) {
     const int64_t gx = ceil_div(nblk, X64_THREADS);
-    const int64_t gy = ceil_div(rows, 2);
+    const int64_t gy = ceil_div(rows, X64_ROWS);
     if (gx > 0x7FFFFFFF) return cudaErrorInvalidValue;
     const int vec = aligned && shift % 2 == 0 && cols % 2 == 0;
     const dim3 grid((unsigned)gx,
@@ -322,7 +361,7 @@ cudaError_t launch64(double* out, int64_t rows, int64_t cols, int shift,
         out, rows, cols, shift, ctr_stride, seed, vec);
   } else {
     const int64_t gx = ceil_div(ceil_div(rows, 2), X64_TX);
-    const int64_t gy = ceil_div(nblk, X64_TY);
+    const int64_t gy = ceil_div(nblk, X64_TY * X64_T_BLOCKS);
     if (gx > 0x7FFFFFFF) return cudaErrorInvalidValue;
     const int vec = aligned && rows % 2 == 0;
     const dim3 grid((unsigned)gx,

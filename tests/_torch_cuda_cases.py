@@ -1313,6 +1313,12 @@ class Fill64Branch:
     carry: bool = False
 
 
+# K6's geometry, as csrc/x64_fill.cu sets it (test_torch_cuda_tier.py
+# checks): natural rows a thread of fill_block64_kernel, counter blocks a
+# CTA's step in fill_block64_T_kernel
+K6_ROWS = 2
+K6_T_STEP = 16
+
 # a generator a geometry, each geometry in both families: each kernel runs
 # its 8 instantiations (4 generators x 2 families)
 FILL64_BRANCHES = (
@@ -1331,6 +1337,18 @@ FILL64_BRANCHES = (
     Fill64Branch("cols_carry", (5000, 64), (4999, 64, 1, 0), "philox2x64",
                  carry=True),
     Fill64Branch("cols_past_grid_y", (2_200_000, 3), (2_199_990, 3, 6, 0),
+                 "threefry2x64"),
+    # the redesign's geometry: odd row counts (a row past the edge in the
+    # last group of K6_ROWS) under 16-byte stores of four- and two-word
+    # blocks; T steps that end on the edge, and whose second blocks are
+    # partly past it
+    Fill64Branch("rows_wide_stores_tail", (1024, 8192), (63, 4990, 1, 6),
+                 "philox4x64"),
+    Fill64Branch("rows_pairs_odd", (1024, 8192), (101, 3000, 3, 4),
+                 "philox2x64"),
+    Fill64Branch("cols_step_whole", (3000, 500), (2048, 400, 0, 3),
+                 "philox4x64"),
+    Fill64Branch("cols_step_second_partly", (3000, 500), (2003, 64, 1, 0),
                  "threefry2x64"),
 )
 
@@ -1431,18 +1449,27 @@ def _fill_natural(b, w=4):
 def _fill64_facts(b: Fill64Branch, family) -> dict:
     """K6's kernel, generator, family, shift, store width (16-byte where
     the launcher's ``vec`` holds for an aligned output), carry and whether
-    its loop passes grid.y's 65535 (natural: row pairs; transposed: 8
-    counter blocks a CTA), at the card shape."""
+    its loop passes grid.y's 65535 (natural: K6_ROWS rows a CTA;
+    transposed: K6_T_STEP counter blocks), at the card shape; natural:
+    whether the row count leaves a partial group of K6_ROWS; transposed:
+    the last step's blocks ("whole", or its second blocks all or partly
+    past the edge)."""
     w = rt.RNGState.from_key(0, b.rng).block_width
     colmajor, rows, cols, shift = _fill_natural(b, w)
     if colmajor:
         nblk = -(-(shift + cols) // w)
+        tail = nblk % K6_T_STEP
         return dict(kernel="fill_block64_T_kernel", rng=b.rng, family=family,
                     shift=shift, wide_stores=rows % 2 == 0, carry=b.carry,
-                    past_grid_y=-(-nblk // 8) > 65535)
+                    past_grid_y=-(-nblk // K6_T_STEP) > 65535,
+                    last_step="whole" if tail == 0 else
+                    "second blocks past" if tail <= K6_T_STEP // 2
+                    else "second blocks partly past")
+    wide = shift % 2 == 0 and cols % 2 == 0
     return dict(kernel="fill_block64_kernel", rng=b.rng, family=family,
-                shift=shift, wide_stores=shift % 2 == 0 and cols % 2 == 0,
-                carry=b.carry, past_grid_y=-(-rows // 2) > 65535)
+                shift=shift, wide_stores=wide, carry=b.carry,
+                past_grid_y=-(-rows // K6_ROWS) > 65535,
+                row_tail=rows % K6_ROWS != 0)
 
 
 def _ell_dims(b: EllBranch, scale):
@@ -1684,6 +1711,9 @@ def grid_reach(max_active=None, max_ctas=None) -> dict:
                 else "8-byte")
             add(f"{name} carry", f["carry"])
             add(f"{name} past grid.y", f["past_grid_y"])
+            for fact in ("row_tail", "last_step"):
+                if fact in f:
+                    add(f"{name} {fact}", f[fact])
         else:
             add("bw", f["bw"])
             add("n", "1" if f["n"] == 1 else ">1")
@@ -1703,7 +1733,9 @@ def grid_required(max_active=None) -> dict:
     tiles past grid.y; K5's bw 8 and 32, n = 1, every order, alpha != 1
     and bf16 B; K6's two kernels in each generator and family, each with
     and without a shift, both store widths, a carry past counter word 0
-    and its loop past grid.y."""
+    and its loop past grid.y; the natural kernel's row count with and
+    without a partial group; the transposed kernel's last step whole, with
+    its second blocks past the edge, and partly past it."""
     max_active = CARD_MAX_ACTIVE_CLUSTERS if max_active is None \
         else max_active
     modes = {"tma_rows", "tma_cols", "direct"}
@@ -1739,6 +1771,9 @@ def grid_required(max_active=None) -> dict:
         need[("K6", f"{k} stores")] = {"16-byte", "8-byte"}
         need[("K6", f"{k} carry")] = {False, True}
         need[("K6", f"{k} past grid.y")] = {False, True}
+    need[("K6", "fill_block64_kernel row_tail")] = {False, True}
+    need[("K6", "fill_block64_T_kernel last_step")] = {
+        "whole", "second blocks past", "second blocks partly past"}
     need.update({("K5", "bw"): {8, 32}, ("K5", "n"): {"1", ">1"},
                  ("K5", "order"): {"plain", "storage", "natural"},
                  ("K5", "alpha"): {"1", "other"},

@@ -71,6 +71,20 @@ def test_branch_declares_its_facts(bid):
     assert cases.branch_facts(bid) == cases.declared_facts(bid)
 
 
+def test_k6_geometry_is_the_kernels():
+    """The K6 geometry the branch facts assume is csrc/x64_fill.cu's."""
+    import re
+    src = (TESTS.parent / "randblas_tpu_torch" / "csrc"
+           / "x64_fill.cu").read_text()
+
+    def const(name):
+        return int(re.search(rf"constexpr int {name} = (\d+);",
+                             src).group(1))
+    assert cases.K6_ROWS == const("X64_ROWS")
+    assert cases.K6_T_STEP == (const("X64_THREADS") // const("X64_TX")
+                               * const("X64_T_BLOCKS"))
+
+
 def test_load_mode_follows_a_map():
     x = torch.zeros((64, 36))
     assert cases.load_mode(x) == "tma_rows"

@@ -329,8 +329,8 @@ def test_compat_layout_helpers_match_jax():
 def test_every_port_module_imports_with_jax_blocked():
     """Every module of the port, its application tier (examples_torch/),
     chip_smoke.py and the scripts beside it (kernel_variants.py, the
-    ablations, dist_smoke.py and gate_sweep.py) import with jax and the
-    JAX package blocked in sys.modules."""
+    ablations, x64_ablation.py among them, dist_smoke.py and gate_sweep.py)
+    import with jax and the JAX package blocked in sys.modules."""
     import os
     import subprocess
     import sys
@@ -348,7 +348,7 @@ def test_every_port_module_imports_with_jax_blocked():
         "'examples_torch.')]\n"
         "for name in names + ['chip_smoke', 'kernel_variants', "
         "'fused_ablation', 'saso_ablation', 'fill_ablation', "
-        "'dist_smoke', 'gate_sweep']:\n"
+        "'x64_ablation', 'dist_smoke', 'gate_sweep']:\n"
         "    importlib.import_module(name)\n"
         "print(' '.join(names))\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
