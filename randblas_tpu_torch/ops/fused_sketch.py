@@ -24,7 +24,9 @@ lies on the CPU; on a CUDA tensor it launches its kernel or raises. Each
 wrapper counts its kernel launches in ``.launches``. K1 and K2 launch with
 the plan of ``launch_plan`` (tiles, thread-block cluster, grid, contraction
 splits), which asks the card through ``max_active_clusters`` how many
-clusters it runs at once; they read A through its strides.
+clusters it runs at once; they read A through its strides. A launch is
+recorded as the span ``K1.launch`` or ``K2.launch`` (plan, allocations,
+the launcher's call) with the plan's ``cluster`` and ``splits``.
 
 K1 and K2 are differentiable in A (one ``torch.autograd.Function``, as the
 JAX package's ``jax.custom_vjp``): the sketch is linear in A, so
@@ -53,6 +55,7 @@ from typing import NamedTuple
 import torch
 from torch.autograd.function import once_differentiable
 
+from .. import profiling
 from ..base import Layout, Op
 from ..rng.state import RNGState
 from . import _build
@@ -327,25 +330,28 @@ def _launch(colmajor, base: RNGState, A, d, shift, ctr_stride, gaussian,
         raise ValueError(f"{name} takes at most {_MAX_GRID_Y_ROWS} operator "
                          "rows")
     m, n = A.shape
-    lib = _build.load()
-    plan = launch_plan(d, m, n, shift, max_active_clusters(A.device))
-    with torch.cuda.device(A.device):
-        out = torch.empty((d, n), dtype=torch.float32, device=A.device)
-        ws = (torch.empty((plan.splits, d, n), dtype=torch.float32,
-                          device=A.device) if plan.splits > 1 else None)
-        head = (A.data_ptr(), int(A.dtype == torch.bfloat16), A.stride(0),
-                A.stride(1), None if ws is None else ws.data_ptr(),
-                out.data_ptr(), d, m, n)
-        tail = (ctr_stride, _seed_words(base), _RNG_CODES[base.rng],
-                int(gaussian), float(alpha), plan.words(), _stream(A))
-        if colmajor:
-            code = lib.rbt_fused_sketch_T(*head, shift, *tail)
-            fused_sketch_colmajor.launches += 1
-        else:
-            code = lib.rbt_fused_sketch(*head, *tail)
-            fused_sketch.launches += 1
-    _build.check(code, ("fused_sketch_T_kernel" if colmajor
-                        else "fused_sketch_kernel") + " launch")
+    with profiling.span("K2.launch" if colmajor else "K1.launch") as span:
+        lib = _build.load()
+        plan = launch_plan(d, m, n, shift, max_active_clusters(A.device))
+        span.set(cluster=plan.cluster, splits=plan.splits)
+        with torch.cuda.device(A.device):
+            out = torch.empty((d, n), dtype=torch.float32, device=A.device)
+            ws = (torch.empty((plan.splits, d, n), dtype=torch.float32,
+                              device=A.device) if plan.splits > 1 else None)
+            head = (A.data_ptr(), int(A.dtype == torch.bfloat16),
+                    A.stride(0), A.stride(1),
+                    None if ws is None else ws.data_ptr(), out.data_ptr(),
+                    d, m, n)
+            tail = (ctr_stride, _seed_words(base), _RNG_CODES[base.rng],
+                    int(gaussian), float(alpha), plan.words(), _stream(A))
+            if colmajor:
+                code = lib.rbt_fused_sketch_T(*head, shift, *tail)
+                fused_sketch_colmajor.launches += 1
+            else:
+                code = lib.rbt_fused_sketch(*head, *tail)
+                fused_sketch.launches += 1
+        _build.check(code, ("fused_sketch_T_kernel" if colmajor
+                            else "fused_sketch_kernel") + " launch")
     return out.to(torch.bfloat16) if A.dtype == torch.bfloat16 else out
 
 

@@ -7,7 +7,9 @@ operator's (m, k) structure, as the JAX package does, and on a CUDA tensor
 launches ``saso_sketch_kernel`` (``csrc/saso_sketch.cu``); on a CPU tensor it
 runs the plain version. Both round A to bf16 (the JAX package pre-casts A)
 and sum in float32, so they differ only in the order of the sums. Launches
-are counted in ``saso_sketch.launches``.
+are counted in ``saso_sketch.launches`` and recorded as the span
+``K4.launch`` (plan, allocations, the launcher's call) with the plan's
+``splits``.
 
 The kernel contracts bf16 one-hot panels of S with A on the tensor cores,
 one TI x TN output tile per CTA, with the contraction split on grid.z by
@@ -25,6 +27,7 @@ from typing import NamedTuple
 
 import torch
 
+from .. import profiling
 from ..base import require
 from . import _build
 
@@ -147,20 +150,22 @@ def _launch(idxs_major, vals, a: torch.Tensor, d: int, alpha) -> torch.Tensor:
     # the kernel reads the (m, k) structure as it is
     idx = idxs_major.to(torch.int32).contiguous()
     sgn = vals.to(torch.float32).contiguous()
-    lib = _build.load()
-    plan = launch_plan(d, m, n, max_active_ctas(a.device))
-    with torch.cuda.device(a.device):
-        out = torch.empty((d, n), dtype=torch.float32, device=a.device)
-        ws = (torch.empty((plan.splits, d, n), dtype=torch.float32,
-                          device=a.device) if plan.splits > 1 else None)
-        stream = torch.cuda.current_stream(a.device).cuda_stream
-        code = lib.rbt_saso_sketch(
-            a.data_ptr(), int(a.dtype == torch.bfloat16), a.stride(0),
-            a.stride(1), idx.data_ptr(), sgn.data_ptr(), k,
-            None if ws is None else ws.data_ptr(), out.data_ptr(), d, m, n,
-            float(alpha), plan.words(), ctypes.c_void_p(stream))
-        saso_sketch.launches += 1
-    _build.check(code, "saso_sketch_kernel launch")
+    with profiling.span("K4.launch") as span:
+        lib = _build.load()
+        plan = launch_plan(d, m, n, max_active_ctas(a.device))
+        span.set(splits=plan.splits)
+        with torch.cuda.device(a.device):
+            out = torch.empty((d, n), dtype=torch.float32, device=a.device)
+            ws = (torch.empty((plan.splits, d, n), dtype=torch.float32,
+                              device=a.device) if plan.splits > 1 else None)
+            stream = torch.cuda.current_stream(a.device).cuda_stream
+            code = lib.rbt_saso_sketch(
+                a.data_ptr(), int(a.dtype == torch.bfloat16), a.stride(0),
+                a.stride(1), idx.data_ptr(), sgn.data_ptr(), k,
+                None if ws is None else ws.data_ptr(), out.data_ptr(), d,
+                m, n, float(alpha), plan.words(), ctypes.c_void_p(stream))
+            saso_sketch.launches += 1
+        _build.check(code, "saso_sketch_kernel launch")
     return out
 
 

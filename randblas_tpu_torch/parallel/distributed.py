@@ -58,6 +58,7 @@ import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh
 from torch.distributed.tensor import DTensor, Replicate, Shard
 
+from .. import profiling
 from ..base import Layout, MajorAxis, require
 from ..dense import DenseDist, DenseDistName, DenseSkOp, dist_to_layout
 from ..sparse import SparseSkOp
@@ -170,10 +171,12 @@ class _Take(torch.autograd.Function):
 
 
 def sum_over(part: torch.Tensor, group) -> torch.Tensor:
-    """``part`` summed over ``group``, differentiable (``_SumOver``)."""
-    if torch.is_grad_enabled() and part.requires_grad:
-        return _SumOver.apply(part, group)
-    return _all_reduce(part.contiguous(), group)
+    """``part`` summed over ``group``, differentiable (``_SumOver``);
+    recorded as the span ``sum_over`` (the all-reduce's enqueue)."""
+    with profiling.span("sum_over"):
+        if torch.is_grad_enabled() and part.requires_grad:
+            return _SumOver.apply(part, group)
+        return _all_reduce(part.contiguous(), group)
 
 
 def replicated(a: torch.Tensor, group) -> torch.Tensor:
@@ -317,19 +320,24 @@ def distributed_sketch(S: DenseSkOp, A, mesh: DeviceMesh, *, alpha=1.0,
     single-device operator's, bit for bit; partials add over 'data'. On
     CUDA tensors each tile goes through K1 where it qualifies
     (``use_fused="auto"``); True forces K1 (its plain version on the CPU),
-    False the staged fill and matmul. Differentiable in A."""
-    require(isinstance(S, DenseSkOp), "distributed_sketch takes a DenseSkOp")
-    _require_x32(S)
-    d, m = S.shape
-    require(A.shape[0] == m, "A row count must equal S.n_cols")
-    shape, coord = _mesh(mesh)
-    m_per = left_extents(S, shape)[1]
-    a_blk = local_block(A, mesh, 0, m_per, coord[1])
-    a_blk = replicated(a_blk, mesh.get_group("model"))
-    part = left_shard(S, a_blk, coord, shape, alpha=alpha,
-                      use_fused=use_fused)
-    out = sum_over(part, mesh.get_group("data"))
-    return as_dtensor(out, mesh, [Shard(0), Replicate()], (d, A.shape[1]))
+    False the staged fill and matmul. Differentiable in A. Recorded as
+    the span ``distributed_sketch``, the all-reduce inside it as
+    ``sum_over``."""
+    with profiling.span("distributed_sketch"):
+        require(isinstance(S, DenseSkOp),
+                "distributed_sketch takes a DenseSkOp")
+        _require_x32(S)
+        d, m = S.shape
+        require(A.shape[0] == m, "A row count must equal S.n_cols")
+        shape, coord = _mesh(mesh)
+        m_per = left_extents(S, shape)[1]
+        a_blk = local_block(A, mesh, 0, m_per, coord[1])
+        a_blk = replicated(a_blk, mesh.get_group("model"))
+        part = left_shard(S, a_blk, coord, shape, alpha=alpha,
+                          use_fused=use_fused)
+        out = sum_over(part, mesh.get_group("data"))
+        return as_dtensor(out, mesh, [Shard(0), Replicate()],
+                          (d, A.shape[1]))
 
 
 def distributed_sketch_jit(S: DenseSkOp, A, mesh: DeviceMesh, *,

@@ -37,7 +37,7 @@ distribution transposes to itself, so the identity behind the left-Trans
 and right routes fails for it and they leave it to the staged route. The
 fused routes are differentiable in A (ops/fused_sketch.py).
 
-Sparse-sign operators (SparseSkOp) take ``_sparse_left_apply``; a right
+Sparse-sign operators (SparseSkOp) take ``_sparse_plan``; a right
 sketch is the left sketch of the transposes. Its routes, counted the same
 way:
 
@@ -69,7 +69,7 @@ from typing import Optional
 
 import torch
 
-from . import base
+from . import base, profiling
 from .base import MajorAxis, Op, Side, dims_before_op, require
 from .dense import DenseDist, DenseSkOp
 from .sparse import SparseSkOp
@@ -212,63 +212,74 @@ def _transposed_op(S: DenseSkOp) -> DenseSkOp:
                      S.seed_state, dtype=S.dtype)
 
 
-def _fused(S: DenseSkOp, a_mat, alpha, blk):
-    """(kernel name, alpha * block(S) @ a_mat) through K1 or K2 for the
-    block ``blk`` = (rows_s, cols_s, ro_s, co_s), or None if neither
-    takes it."""
-    from .ops import fused_sketch as fs
+def _swapped(blk):
+    """The block (rows_s, cols_s, ro_s, co_s) of the transposed operator."""
     rows_s, cols_s, ro_s, co_s = blk
-    if not _fused_call_ok(rows_s, cols_s, a_mat):
+    return cols_s, rows_s, co_s, ro_s
+
+
+def _fused_kernel(S: DenseSkOp, a_mat, blk):
+    """The wrapper of K1 or K2 that takes block(S) @ a_mat for the block
+    ``blk`` = (rows_s, cols_s, ro_s, co_s), or None if neither does."""
+    from .ops import fused_sketch as fs
+    if not _fused_call_ok(blk[0], blk[1], a_mat):
         return None
-    for name, supported, kernel in (
-            ("K1", fs.fused_sketch_supported, fs.fused_sketch),
-            ("K2", fs.fused_sketch_colmajor_supported,
-             fs.fused_sketch_colmajor)):
+    for supported, kernel in (
+            (fs.fused_sketch_supported, fs.fused_sketch),
+            (fs.fused_sketch_colmajor_supported, fs.fused_sketch_colmajor)):
         if supported(S.dist, *blk, Op.NoTrans, a_mat.dtype):
-            return name, kernel(S, a_mat, alpha=float(alpha), rows_s=rows_s,
-                                cols_s=cols_s, ro_s=ro_s, co_s=co_s)
+            return kernel
     return None
 
 
-def _left_fused_or_none(S: DenseSkOp, a_mat, blk, op_s: Op, alpha):
-    """(route, alpha * op_s(block(S)) @ a_mat) through K1 or K2, or None."""
+def _fused_run(kernel, S: DenseSkOp, a_mat, alpha, blk):
+    """The call alpha * block(S) @ a_mat through ``kernel``."""
+    rows_s, cols_s, ro_s, co_s = blk
+    return lambda: kernel(S, a_mat, alpha=float(alpha), rows_s=rows_s,
+                          cols_s=cols_s, ro_s=ro_s, co_s=co_s)
+
+
+def _left_fused_plan(S: DenseSkOp, a_mat, blk, op_s: Op, alpha):
+    """(route, run) of alpha * op_s(block(S)) @ a_mat through K1 or K2, or
+    None where neither takes it."""
+    from .ops.fused_sketch import fused_sketch
     if not _fused_gates_ok(S, a_mat):
         return None
     if op_s == Op.NoTrans:
-        fused = _fused(S, a_mat, alpha, blk)
-        if fused is None:
+        kernel = _fused_kernel(S, a_mat, blk)
+        if kernel is None:
             return None
-        kernel, prod = fused
-        return ("left_fused" if kernel == "K1" else "left_colmajor_fused",
-                prod)
-    if S.n_rows == S.n_cols:
+        route = ("left_fused" if kernel is fused_sketch
+                 else "left_colmajor_fused")
+    elif S.n_rows == S.n_cols:
         return None
-    rows_s, cols_s, ro_s, co_s = blk
-    fused = _fused(_transposed_op(S), a_mat, alpha,
-                   (cols_s, rows_s, co_s, ro_s))
-    return None if fused is None else ("left_trans_fused", fused[1])
+    else:
+        S, blk = _transposed_op(S), _swapped(blk)
+        kernel = _fused_kernel(S, a_mat, blk)
+        if kernel is None:
+            return None
+        route = "left_trans_fused"
+    return route, _fused_run(kernel, S, a_mat, alpha, blk)
 
 
-def _right_fused_or_none(S: DenseSkOp, a_mat, blk, op_s: Op, alpha):
-    """alpha * a_mat @ op_s(block(S)) through K1, or None. The left operand
-    of the transposed product is the stored block for op_s = Trans, and
-    the transposed distribution's block for op_s = NoTrans."""
+def _right_fused_plan(S: DenseSkOp, a_mat, blk, op_s: Op, alpha):
+    """The run of alpha * a_mat @ op_s(block(S)) through K1, or None. The
+    left operand of the transposed product is the stored block for op_s =
+    Trans, and the transposed distribution's block for op_s = NoTrans."""
     if not _fused_gates_ok(S, a_mat):
         return None
     if op_s == Op.Trans:
         S_l = S
     elif S.n_rows != S.n_cols:
-        rows_s, cols_s, ro_s, co_s = blk
-        S_l, blk = _transposed_op(S), (cols_s, rows_s, co_s, ro_s)
+        S_l, blk = _transposed_op(S), _swapped(blk)
     else:
         return None
     from .ops.fused_sketch import fused_sketch, fused_sketch_supported
-    rows_s, cols_s, ro_s, co_s = blk
     if not (fused_sketch_supported(S_l.dist, *blk, Op.NoTrans, a_mat.dtype)
-            and _fused_call_ok(rows_s, cols_s, a_mat.T)):
+            and _fused_call_ok(blk[0], blk[1], a_mat.T)):
         return None
-    return fused_sketch(S_l, a_mat.T, alpha=float(alpha), rows_s=rows_s,
-                        cols_s=cols_s, ro_s=ro_s, co_s=co_s).T
+    run = _fused_run(fused_sketch, S_l, a_mat.T, alpha, blk)
+    return lambda: run().T
 
 
 def _require_full_trig(S: TrigSkOp, rows_s, cols_s, ro_s, co_s):
@@ -297,50 +308,107 @@ def _saso_kernel_ok(d: int, m: int, k: int, b: torch.Tensor) -> bool:
         d, m, b.shape[1]))
 
 
-def _fixed_nnz(idx, vals, b, d, alpha):
-    """(route, alpha * S @ b) for a wide SASO given per data column:
-    K4 when it takes the call, else one index_add_ per slot."""
-    from .ops.coo_apply import fixed_nnz_left_apply
+def _sparse_plan(S: SparseSkOp, d: int, m: int, ro_s: int, co_s: int,
+                 op_s: Op, b_mat: torch.Tensor, alpha):
+    """(route, run) of alpha * op_s(submat(S)) @ b_mat for a sparse-sign
+    operator; the run fills it on b_mat's device. The route is decided
+    before the fill: a lazy operator's fill gives canonical triplets. A
+    transposed operator swaps the COO index roles and the offsets."""
+    from .ops.coo_apply import (coo_left_apply_auto, fixed_nnz_left_apply,
+                                row_gather_apply)
     from .ops.saso_sketch import saso_sketch
-    if _saso_kernel_ok(d, idx.shape[0], idx.shape[1], b):
-        return "sparse_saso_kernel", saso_sketch(idx, vals, b, d, alpha)
-    return "sparse_fixed_nnz", fixed_nnz_left_apply(idx, vals, b, d, alpha)
 
+    def filled():
+        return S.filled(b_mat.device)
 
-def _sparse_left_apply(S: SparseSkOp, d: int, m: int, ro_s: int, co_s: int,
-                       op_s: Op, b_mat: torch.Tensor, alpha):
-    """(route, alpha * op_s(submat(S)) @ b_mat) for a sparse-sign operator,
-    filled on b_mat's device. A transposed operator swaps the COO index
-    roles and the offsets."""
-    from .ops.coo_apply import coo_left_apply_auto, row_gather_apply
-
-    s = S.filled(b_mat.device)
     k = S.dist.vec_nnz
-    saso = s.canonical and S.dist.major_axis == MajorAxis.Short \
+    canonical = S.canonical or not S.known_filled
+    full = canonical and S.dist.major_axis == MajorAxis.Short \
         and ro_s == 0 and co_s == 0
     wide, tall = S.n_rows < S.n_cols, S.n_rows > S.n_cols
-    if saso and op_s == Op.NoTrans and (d, m) == S.shape:
-        if wide:   # k entries in each data column
-            return _fixed_nnz(s.rows.reshape(m, k), s.vals.reshape(m, k),
-                              b_mat, d, alpha)
-        if tall:   # k entries in each output row
-            return "sparse_row_gather", row_gather_apply(
-                s.cols.reshape(d, k), s.vals.reshape(d, k), b_mat, alpha)
-    if saso and op_s == Op.Trans and (m, d) == S.shape:
-        # the right sketch arrives here: S^T of a tall SASO is wide with k
-        # entries per column, S^T of a wide one has k per output row
-        if tall:
-            return _fixed_nnz(s.cols.reshape(m, k), s.vals.reshape(m, k),
-                              b_mat, d, alpha)
-        if wide:
-            return "sparse_row_gather", row_gather_apply(
-                s.rows.reshape(d, k), s.vals.reshape(d, k), b_mat, alpha)
-    rows, cols = s.rows, s.cols
-    if op_s == Op.Trans:
-        rows, cols = cols, rows
-        ro_s, co_s = co_s, ro_s
-    return "sparse_coo", coo_left_apply_auto(
-        rows, cols, s.vals.to(b_mat.dtype), b_mat, d, m, ro_s, co_s, alpha)
+    # the index vector of op_s(S)'s k entries in each data column
+    # (``per_col``) or in each output row (``per_row``); the right sketch
+    # arrives with op_s = Trans: S^T of a tall SASO is wide with k entries
+    # per column, S^T of a wide one has k per output row
+    per_col = per_row = None
+    if full and op_s == Op.NoTrans and (d, m) == S.shape:
+        per_col, per_row = ("rows" if wide else None), (
+            "cols" if tall else None)
+    elif full and op_s == Op.Trans and (m, d) == S.shape:
+        per_col, per_row = ("cols" if tall else None), (
+            "rows" if wide else None)
+    if per_col:
+        def tables():
+            s = filled()
+            return (getattr(s, per_col).reshape(m, k),
+                    s.vals.reshape(m, k))
+        if _saso_kernel_ok(d, m, k, b_mat):
+            return "sparse_saso_kernel", lambda: saso_sketch(
+                *tables(), b_mat, d, alpha)
+        return "sparse_fixed_nnz", lambda: fixed_nnz_left_apply(
+            *tables(), b_mat, d, alpha)
+    if per_row:
+        def gather():
+            s = filled()
+            return row_gather_apply(getattr(s, per_row).reshape(d, k),
+                                    s.vals.reshape(d, k), b_mat, alpha)
+        return "sparse_row_gather", gather
+
+    def coo():
+        s = filled()
+        rows, cols, r0, c0 = s.rows, s.cols, ro_s, co_s
+        if op_s == Op.Trans:
+            rows, cols, r0, c0 = cols, rows, co_s, ro_s
+        return coo_left_apply_auto(rows, cols, s.vals.to(b_mat.dtype),
+                                   b_mat, d, m, r0, c0, alpha)
+    return "sparse_coo", coo
+
+
+def _left_plan(S, a_mat, d: int, blk, op_s: Op, alpha, dtype, device):
+    """(route, run) of a left sketch alpha * op_s(block(S)) @ a_mat: the
+    route is decided here, and nothing is launched until ``run()``."""
+    rows_s, cols_s, ro_s, co_s = blk
+    if isinstance(S, TrigSkOp):
+        _require_full_trig(S, *blk)
+        return "srht", lambda: _scaled(alpha, (
+            S.lmult(a_mat) if op_s == Op.NoTrans
+            else S.lmult_t(a_mat)).to(dtype))
+    if isinstance(S, SparseSkOp):
+        return _sparse_plan(S, d, a_mat.shape[0], ro_s, co_s, op_s, a_mat,
+                            alpha)
+    fused = _left_fused_plan(S, a_mat, blk, op_s, alpha)
+    if fused is not None:
+        return fused
+    require(use_fused is not True,
+            "fused sketch path forced but the call is unsupported "
+            "(the fused kernels take lazy Gaussian/Uniform "
+            "operators with a 4x32 generator and f32/bf16 data)")
+    return "left_staged", lambda: _scaled(alpha, torch.matmul(
+        _dense_block(S, *blk, op_s, dtype, device), a_mat))
+
+
+def _right_plan(S, a_mat, d: int, blk, op_s: Op, alpha, dtype, device):
+    """(route, run) of a right sketch alpha * a_mat @ op_s(block(S)), as
+    ``_left_plan``."""
+    rows_s, cols_s, ro_s, co_s = blk
+    if isinstance(S, TrigSkOp):
+        _require_full_trig(S, *blk)
+        # A @ op_s(S) = (op_s(S)^T @ A^T)^T
+        return "srht", lambda: _scaled(alpha, (
+            S.lmult_t(a_mat.T) if op_s == Op.NoTrans
+            else S.lmult(a_mat.T)).T.to(dtype))
+    if isinstance(S, SparseSkOp):
+        # A @ op_s(S) = (op_s(S)^T @ A^T)^T: the flipped op folds the
+        # transpose into the index roles
+        flipped = Op.NoTrans if op_s == Op.Trans else Op.Trans
+        route, run = _sparse_plan(S, d, a_mat.shape[1], ro_s, co_s, flipped,
+                                  a_mat.T, alpha)
+        return route, lambda: run().T
+    fused = _right_fused_plan(S, a_mat, blk, op_s, alpha)
+    if fused is not None:
+        return "right_fused", fused
+    return "right_staged", lambda: _scaled(alpha, torch.matmul(
+        a_mat, _dense_block(S, *blk, op_s, dtype, device)))
 
 
 def sketch_general(
@@ -370,94 +438,53 @@ def sketch_general(
       out: B to accumulate into (a new tensor is returned). Required
          whenever beta != 0.
 
-    Returns B_new on A's device.
+    Returns B_new on A's device. Recorded as the span ``sketch`` (arg
+    ``route``), and inside it ``route``, the route's decision, which ends
+    before anything is launched (``profiling.span``).
     """
-    if not isinstance(S, (DenseSkOp, SparseSkOp, TrigSkOp)):
-        raise NotImplementedError(
-            f"{type(S).__name__}: randblas_tpu_torch sketches with its own "
-            "DenseSkOp, SparseSkOp and TrigSkOp (SRHT) operators")
-    side = _as_side(side)
-    op_s = _as_op(op_s)
-    op_a = _as_op(op_a)
-    A = torch.as_tensor(A)
-    require(A.dim() == 2, "A must be 2-D")
-    if out is None:
-        require(isinstance(beta, (int, float)) and beta == 0,
-                "beta != 0 requires an `out` tensor to accumulate into")
-    dtype = A.dtype
-    a_mat = A if op_a == Op.NoTrans else A.T
-
-    if side == Side.Left:
-        m, n = a_mat.shape
-        if d is None:
-            d = out.shape[0] if out is not None else (
-                S.n_rows if op_s == Op.NoTrans else S.n_cols)
-        rows_s, cols_s = dims_before_op(d, m, op_s)
+    with profiling.span("sketch") as call:
+        if not isinstance(S, (DenseSkOp, SparseSkOp, TrigSkOp)):
+            raise NotImplementedError(
+                f"{type(S).__name__}: randblas_tpu_torch sketches with its "
+                "own DenseSkOp, SparseSkOp and TrigSkOp (SRHT) operators")
+        side = _as_side(side)
+        op_s = _as_op(op_s)
+        op_a = _as_op(op_a)
+        A = torch.as_tensor(A)
+        require(A.dim() == 2, "A must be 2-D")
+        if out is None:
+            require(isinstance(beta, (int, float)) and beta == 0,
+                    "beta != 0 requires an `out` tensor to accumulate into")
+        a_mat = A if op_a == Op.NoTrans else A.T
+        if side == Side.Left:
+            m, n = a_mat.shape
+            if d is None:
+                d = out.shape[0] if out is not None else (
+                    S.n_rows if op_s == Op.NoTrans else S.n_cols)
+            rows_s, cols_s = dims_before_op(d, m, op_s)
+            expected_shape, plan = (d, n), _left_plan
+        else:
+            n, m = a_mat.shape
+            if d is None:
+                d = out.shape[1] if out is not None else (
+                    S.n_cols if op_s == Op.NoTrans else S.n_rows)
+            rows_s, cols_s = dims_before_op(m, d, op_s)
+            expected_shape, plan = (n, d), _right_plan
         require(S.n_rows >= rows_s + ro_s, "S row range out of bounds")
         require(S.n_cols >= cols_s + co_s, "S column range out of bounds")
-        if isinstance(S, TrigSkOp):
-            _require_full_trig(S, rows_s, cols_s, ro_s, co_s)
-            route = "srht"
-            raw = S.lmult(a_mat) if op_s == Op.NoTrans else S.lmult_t(a_mat)
-            prod = _scaled(alpha, raw.to(dtype))
-        elif isinstance(S, SparseSkOp):
-            route, prod = _sparse_left_apply(S, d, m, ro_s, co_s, op_s, a_mat,
-                                             alpha)
-        elif (fused := _left_fused_or_none(
-                S, a_mat, (rows_s, cols_s, ro_s, co_s), op_s,
-                alpha)) is not None:
-            route, prod = fused
-        else:
-            require(use_fused is not True,
-                    "fused sketch path forced but the call is unsupported "
-                    "(the fused kernels take lazy Gaussian/Uniform "
-                    "operators with a 4x32 generator and f32/bf16 data)")
-            route = "left_staged"
-            s_blk = _dense_block(S, rows_s, cols_s, ro_s, co_s, op_s, dtype,
-                                 A.device)
-            prod = _scaled(alpha, torch.matmul(s_blk, a_mat))
+        with profiling.span("route"):
+            route, run = plan(S, a_mat, d, (rows_s, cols_s, ro_s, co_s),
+                              op_s, alpha, A.dtype, A.device)
+        prod = run()
         route_counts[route] += 1
-        expected_shape = (d, n)
-    else:
-        n, m = a_mat.shape
-        if d is None:
-            d = out.shape[1] if out is not None else (
-                S.n_cols if op_s == Op.NoTrans else S.n_rows)
-        rows_s, cols_s = dims_before_op(m, d, op_s)
-        require(S.n_rows >= rows_s + ro_s, "S row range out of bounds")
-        require(S.n_cols >= cols_s + co_s, "S column range out of bounds")
-        if isinstance(S, TrigSkOp):
-            _require_full_trig(S, rows_s, cols_s, ro_s, co_s)
-            route_counts["srht"] += 1
-            # A @ op_s(S) = (op_s(S)^T @ A^T)^T
-            raw = (S.lmult_t(a_mat.T) if op_s == Op.NoTrans
-                   else S.lmult(a_mat.T)).T
-            prod = _scaled(alpha, raw.to(dtype))
-        elif isinstance(S, SparseSkOp):
-            # A @ op_s(S) = (op_s(S)^T @ A^T)^T: the flipped op folds the
-            # transpose into the index roles
-            flipped = Op.NoTrans if op_s == Op.Trans else Op.Trans
-            route, prod = _sparse_left_apply(S, d, m, ro_s, co_s, flipped,
-                                             a_mat.T, alpha)
-            route_counts[route] += 1
-            prod = prod.T
-        elif (prod := _right_fused_or_none(
-                S, a_mat, (rows_s, cols_s, ro_s, co_s), op_s,
-                alpha)) is not None:
-            route_counts["right_fused"] += 1
-        else:
-            route_counts["right_staged"] += 1
-            s_blk = _dense_block(S, rows_s, cols_s, ro_s, co_s, op_s, dtype,
-                                 A.device)
-            prod = _scaled(alpha, torch.matmul(a_mat, s_blk))
-        expected_shape = (n, d)
-
-    if out is not None:
-        require(tuple(out.shape) == expected_shape,
-                f"out has shape {tuple(out.shape)}, expected {expected_shape}")
-        from .ops.accumulate import accumulate
-        return accumulate(prod, beta, out)
-    return prod
+        call.set(route=route)
+        if out is not None:
+            require(tuple(out.shape) == expected_shape,
+                    f"out has shape {tuple(out.shape)}, expected "
+                    f"{expected_shape}")
+            from .ops.accumulate import accumulate
+            return accumulate(prod, beta, out)
+        return prod
 
 
 def sketch(S, A: torch.Tensor, *, side="left") -> torch.Tensor:

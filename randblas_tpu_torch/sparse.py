@@ -24,6 +24,7 @@ from typing import Optional
 
 import torch
 
+from . import profiling
 from .base import MajorAxis, require
 from .dense import default_device
 from .ops.dense_fill import _generator_words
@@ -123,12 +124,14 @@ def repeated_fisher_yates(state: RNGState, vec_nnz: int, dim_major: int,
     log_val = torch.empty_like(log_pos)
     idxs = []
     for j in range(k):
-        at_ell = _read(log_pos, log_val, ell[:, j])
-        at_j = _read(log_pos, log_val, torch.full_like(ell[:, j], j))
-        idxs.append(at_ell)
-        log_pos = torch.cat([log_pos, ell[:, j, None],
-                             torch.full_like(ell[:, j, None], j)], dim=1)
-        log_val = torch.cat([log_val, at_j[:, None], at_ell[:, None]], dim=1)
+        with profiling.span("fisher_yates.step", j=j):
+            at_ell = _read(log_pos, log_val, ell[:, j])
+            at_j = _read(log_pos, log_val, torch.full_like(ell[:, j], j))
+            idxs.append(at_ell)
+            log_pos = torch.cat([log_pos, ell[:, j, None],
+                                 torch.full_like(ell[:, j, None], j)], dim=1)
+            log_val = torch.cat([log_val, at_j[:, None], at_ell[:, None]],
+                                dim=1)
     idxs = torch.stack(idxs, dim=1).to(index_dtype)
     vals = 1 - 2 * (rv[1] % 2)
     return idxs, vals.to(dtype)
@@ -202,31 +205,35 @@ class SparseSkOp:
 
     def filled(self, device=None) -> "SparseSkOp":
         """An operator with its COO triplets attached. A lazy operator is
-        filled on ``device`` (the card by default); a filled one is
-        returned as it is, or moved to ``device`` when one is given."""
+        filled on ``device`` (the card by default), recorded as the span
+        ``fill`` with one ``fisher_yates.step`` span (arg ``j``) a step; a
+        filled one is returned as it is, or moved to ``device`` when one
+        is given."""
         if self.known_filled:
             if device is None or self.rows.device == torch.device(device):
                 return self
             device = torch.device(device)
             return self._with(self.rows.to(device), self.cols.to(device),
                               self.vals.to(device))
-        d = self.dist
-        dim_major, dim_minor = _dims(d)
-        idxs_major, vals = repeated_fisher_yates(
-            self.seed_state, d.vec_nnz, dim_major, dim_minor,
-            dtype=self.dtype, index_dtype=self.index_dtype, device=device)
-        idxs_major = idxs_major.reshape(-1)
-        idxs_minor = torch.arange(
-            dim_minor, dtype=self.index_dtype,
-            device=idxs_major.device).repeat_interleave(d.vec_nnz)
-        # the sampling's major axis is the short axis for SASO, the long
-        # axis for LASO
-        is_wide = d.n_rows == min(d.n_rows, d.n_cols)
-        if is_wide == (d.major_axis == MajorAxis.Short):
-            rows, cols = idxs_major, idxs_minor
-        else:
-            rows, cols = idxs_minor, idxs_major
-        return self._with(rows, cols, vals.reshape(-1), canonical=True)
+        with profiling.span("fill"):
+            d = self.dist
+            dim_major, dim_minor = _dims(d)
+            idxs_major, vals = repeated_fisher_yates(
+                self.seed_state, d.vec_nnz, dim_major, dim_minor,
+                dtype=self.dtype, index_dtype=self.index_dtype,
+                device=device)
+            idxs_major = idxs_major.reshape(-1)
+            idxs_minor = torch.arange(
+                dim_minor, dtype=self.index_dtype,
+                device=idxs_major.device).repeat_interleave(d.vec_nnz)
+            # the sampling's major axis is the short axis for SASO, the
+            # long axis for LASO
+            is_wide = d.n_rows == min(d.n_rows, d.n_cols)
+            if is_wide == (d.major_axis == MajorAxis.Short):
+                rows, cols = idxs_major, idxs_minor
+            else:
+                rows, cols = idxs_minor, idxs_major
+            return self._with(rows, cols, vals.reshape(-1), canonical=True)
 
     def materialize(self, device=None) -> torch.Tensor:
         """Dense (n_rows, n_cols) tensor (for checks; no route uses it), on
