@@ -12,9 +12,10 @@ ColMajor block's natural one through the transposed operator, bit for bit),
 the lazy fill ``fill_dense_submat``, which runs K3 on the card,
 against the plain fill (bit for bit, float32, float64 and bf16), the fused
 sketch kernels K1 and K2, the SASO sketch kernel K4, the BlockedELL SpMM
-kernel K5 and the x64 fill kernel K6 against their plain PyTorch versions
-on the card (K4 and K5 also launched twice on the same inputs and compared
-bit for bit; K6 bit for bit), and drives
+kernel K5, the x64 fill kernel K6 and the sparse-sign fill kernel K7
+against their plain PyTorch versions on the card (K4 and K5 also launched
+twice on the same inputs and compared bit for bit; K6 and K7 bit for bit),
+and drives
 these paths through the public entry points, each with the launch counts
 set to 0 just before it and read just after:
 
@@ -34,11 +35,13 @@ set to 0 just before it and read just after:
   by a Uniform DenseDist(16392, 1032) at d=1024, ro_s=co_s=8: the right
   route through K1 once (the autotranspose identity);
 - (e) run_all.py config 3: a SASO SparseDist(1024, 65536, vec_nnz=8),
-  filled on the card, sketching A3 (65536, 2048) float32 from the left:
-  K4 once;
+  filled on the card by K7 once, sketching A3 (65536, 2048) float32 from
+  the left: K4 once; K7's fill alone bit for bit its plain version, its
+  times and its bound (every path that fills a lazy sparse operator on
+  the card counts one K7 launch a fill);
 - (e') the transposed full route: a right sketch of A3^T (2048, 65536) by
-  the tall SASO SparseDist(65536, 1024, vec_nnz=8): K4 once, on a
-  column-major view of the data;
+  the tall SASO SparseDist(65536, 1024, vec_nnz=8): K7 once, K4 once, on
+  a column-major view of the data;
 - (f) run_all.py config 4: sketch_sparse of COO data (20000 x 10000, 1e6
   entries) from the left by DenseDist(512, 20000): K3 once for the
   operator block, then the COO route;
@@ -236,13 +239,16 @@ and the paths with CUDA events (K3 also 20 calls back to back and by its
 device time in a torch.profiler window, in both transforms at the paths'
 shapes, its wrappers' host time per call on a 4 x 4 block, and the
 operator blocks of (f) and (g) beside the plain fill). The line before the
-last is a JSON object listing K1 to K6, each with one call's time through
+last is a JSON object listing K1 to K7, each with one call's time through
 its wrapper; K3's entry is the fill the staged route runs (1024 x 65536,
 the staged fill's transform), with the launches of that route and two more
 keys, its device time (``device_ms``) and its time a call 20 calls back to
 back (``seq_ms``); K6's is (m)'s Gaussian fill, with the same two keys (its
 device time by CUDA events) and (m')'s ColMajor fill under ``colmajor_*``
-keys, its bound max(bytes, operations). The last line is {"ok":
+keys, its bound max(bytes, operations); K7's is (e)'s fill, with the same
+two keys, the plain version's device time and the operations bound of the
+SASS census at (e)'s k (``plain_device_ms``, ``operations_ms``), its bound
+max(bytes, operations). The last line is {"ok":
 true, "device": {...}}. Any failed check raises, so the exit code is
 non-zero and no result line is printed. Without a CUDA device it exits
 non-zero before running anything.
@@ -261,8 +267,9 @@ import time
 import numpy as np
 import torch
 
-from kernel_variants import (device_ms, event_device_us, issue_ms, k6_census,
-                             k6_values_per_iter, launch_ms, max_sm_clock,
+from kernel_variants import (all_device_ms, device_ms, event_device_us,
+                             issue_ms, k6_census, k6_values_per_iter,
+                             k7_census, launch_ms, max_sm_clock,
                              operations_bound, sass_of, time_ms)
 
 D, M, N = 1024, 65536, 4096          # the main path's shape
@@ -433,13 +440,15 @@ APP_DIST = (1e-5, 1e-4)  # (A10) rangefinder |Q^T Q - I| (4.8e-7);
 # for its test matrix; (A8)'s CountSketches K4 80; (A9) K3 31; (A10)'s
 # 1 x 1 mesh took K1 where sketch_general stays staged (repaired: the
 # shards ask fused_profitable); (A2s) took K5 through 1.9e9 table slots
-# (repaired: spmm.BLOCKED_ELL_MAX_SLOTS)
+# (repaired: spmm.BLOCKED_ELL_MAX_SLOTS). K7 fills each lazy
+# sparse operator on the card once: (A1) 2, (A5) 6, (A8) 480, as the card
+# showed
 APP_LAUNCHES = {
-    "A1": {"K3": 2, "K4": 2}, "A1s": {"K3": 2, "K4": 2},
+    "A1": {"K3": 2, "K4": 2, "K7": 2}, "A1s": {"K3": 2, "K4": 2, "K7": 2},
     "A2": {"K3": 2, "K5": 6}, "A2s": {"K3": 2}, "A2s_resolved": {"K3": 1},
-    "A3": {"K3": 6, "K5": 18}, "A4": {"K3": 16}, "A5": {},
+    "A3": {"K3": 6, "K5": 18}, "A4": {"K3": 16}, "A5": {"K7": 6},
     "A6": {"K1": 2, "K3": 2}, "A6s": {"K1": 2, "K3": 2}, "A7": {"K3": 5},
-    "A8": {"K4": 80}, "A9": {"K3": 31}, "A10": {"K3": 7},
+    "A8": {"K4": 80, "K7": 480}, "A9": {"K3": 31}, "A10": {"K3": 7},
     "A10s": {"K1": 6, "K3": 1}, "A11": {},
 }
 PEAK_BF16 = 989e12     # H100 SXM dense bf16 FLOP/s at 700 W (data sheet)
@@ -451,7 +460,8 @@ KERNEL_NAMES = ("fused_sketch_T_kernel", "fused_sketch_kernel",
                 "fused_sketch_reduce_kernel", "fill_block_T_kernel",
                 "fill_block_kernel", "saso_sketch_kernel",
                 "saso_reduce_kernel", "ell_spmm_kernel",
-                "fill_block64_T_kernel", "fill_block64_kernel")
+                "fill_block64_T_kernel", "fill_block64_kernel",
+                "saso_fill_kernel")
 WGMMA_KERNELS = ("fused_sketch_kernel", "fused_sketch_T_kernel",
                  "saso_sketch_kernel")
 
@@ -580,6 +590,81 @@ def entry(name, fn, src, line, launches, err, ms, plain, bnd, lib, **more):
             "library_ms": lib, **more}
 
 
+def fill_kernel(dev, card, S, launches):
+    """K7 at (e)'s fill of ``S`` (its launches ``launches``, counted in (e)'s
+    own run): the wrapper's three outputs bit for bit against the plain
+    version on the card at the same seed; one call (CUDA events), 20 calls
+    back to back (per call), its device time (launch_ms: CUDA events around
+    20 launches queued while the card sleeps); the plain version's time (its
+    ~380 launches, host-paced) and device time (torch.profiler, every
+    kernel); its bound the larger of the bytes written and the operations
+    bound of the SASS census of the register-log kernel at (e)'s k, at the
+    card's maximum SM clock. Returns K7's kernels-line entry."""
+    from randblas_tpu_torch import sparse
+    from randblas_tpu_torch.ops import _build
+    from randblas_tpu_torch.ops import saso_fill as sf
+    dim_major, dim_minor = sparse._dims(S.dist)
+    k, st = S.dist.vec_nnz, S.seed_state
+
+    def fill():
+        return sf.saso_fill(st, k, dim_major, dim_minor, device=dev)
+
+    def plain():
+        return sparse.repeated_fisher_yates_reference(st, k, dim_major,
+                                                      dim_minor, device=dev)
+
+    def twenty():
+        for _ in range(20):
+            fill()
+    major, minor, vals = fill()
+    idx, sgn = plain()
+    torch.cuda.synchronize()
+    rows = torch.arange(dim_minor, dtype=torch.int32,
+                        device=dev).repeat_interleave(k)
+    err = max(abs_err(major, idx.reshape(-1)), abs_err(minor, rows),
+              abs_err(vals, sgn.reshape(-1)))
+    check(torch.equal(major, idx.reshape(-1)) and torch.equal(minor, rows)
+          and torch.equal(vals, sgn.reshape(-1)),
+          f"K7 at (e)'s fill vs its plain version: {err}")
+    print(f"K7 at (e)'s fill {dim_major}x{dim_minor}, k={k}: indices and "
+          "signs bitwise its plain version on the card")
+    del major, minor, vals, idx, sgn, rows
+    ms = time_ms(fill)
+    seq = time_ms(twenty) / 20
+    dms = launch_ms(fill)
+    plain_ms = time_ms(plain, reps=3)
+    plain_dev = all_device_ms(plain)
+    n = dim_minor * k
+    bnd = bound(0.0, n * (4 + 4 + 4))   # int32 rows and cols, float32 vals
+    census = k7_census(k, str(_build.BUILD_DIR / "k7_census"))
+    ops_txt = "operations not counted (no cuobjdump)"
+    ops = None
+    if census is not None:
+        c = census[(st.rng, 1 if k == 1 else sf.REGISTER_LOG)]
+        check(not c["loop"], f"K7 census at k={k}: a loop in {c}")
+        hz = max_sm_clock()
+        ops = operations_bound(c["per_vector"], dim_minor, hz)
+        issue = issue_ms(c["per_vector"], dim_minor, hz)
+        ops_txt = (f"operations {ops[0]:.4f} ms ({ops[1]} at "
+                   f"{hz / 1e6:.0f} MHz; per vector {c['per_vector']}; "
+                   f"issuing every instruction {issue:.4f} ms, not a bound)")
+        if ops[0] > bnd[0]:
+            bnd = (ops[0], "operations")
+    print(f"time K7 (e)'s fill {dim_major}x{dim_minor}, k={k}: one call "
+          f"{ms:.4f} ms ({bnd[0] / ms:.0%} of the bound), back to back "
+          f"{seq:.4f} ms ({bnd[0] / seq:.0%}), device {dms:.4f} ms "
+          f"({bnd[0] / dms:.0%}); bound {bnd[0]:.4f} ms ({bnd[1]}; bytes "
+          f"{n * 12 / PEAK_BYTES * 1e3:.4f} ms; {ops_txt}); plain version "
+          f"{plain_ms:.3f} ms, its device time "
+          f"{'not measured' if plain_dev is None else f'{plain_dev:.3f} ms'}"
+          f" [{card}]")
+    return dict(entry("K7", "saso_fill_kernel", "saso_fill", 0, launches,
+                      err, ms, plain_ms, bnd, None, device_ms=dms,
+                      seq_ms=seq, plain_device_ms=plain_dev,
+                      operations_ms=None if ops is None else ops[0]),
+                replaces="randblas_tpu/sparse.py:82")
+
+
 def sparse_paths(rt, dev, drive, card):
     """Phase 7: the paths of the sparse-sign operators (K4) and of sparse
     data (K5) at run_all.py's config 3 and 4 sizes, the kernels' edge cases
@@ -596,7 +681,8 @@ def sparse_paths(rt, dev, drive, card):
     S3 = rt.SparseSkOp(rt.SparseDist(D3, M3, vec_nnz=K3_NNZ),
                        rt.RNGState.from_key(3))
     B3, e_launches = drive("(e) SASO sketch, run_all.py config 3",
-                           lambda: rt.sketch_general(S3, A3), {"K4": 1})
+                           lambda: rt.sketch_general(S3, A3),
+                           {"K4": 1, "K7": 1})
     check(skge.route_counts == {"sparse_saso_kernel": 1},
           f"(e) routes {dict(skge.route_counts)}")
     check(B3.shape == (D3, N3) and B3.dtype == torch.float32,
@@ -624,6 +710,7 @@ def sparse_paths(rt, dev, drive, card):
           f"cudaOccupancyMaxActiveClusters (clusters of one CTA) {active}")
     check(plan.grid[0] * plan.splits <= active,
           f"(e) K4's grid takes more than one round: {plan}")
+    k7 = fill_kernel(dev, card, S3, e_launches["K7"])
 
     # -- (e') the transposed full route: a right sketch by a tall SASO ----
     A3r = A3.T.contiguous()          # (2048, 65536): the data of (e')
@@ -631,7 +718,7 @@ def sparse_paths(rt, dev, drive, card):
                         rt.RNGState.from_key(4))
     Be, _ = drive("(e') right sketch by a tall SASO",
                   lambda: rt.sketch_general(S3t, A3r, side="right"),
-                  {"K4": 1})
+                  {"K4": 1, "K7": 1})
     check(skge.route_counts == {"sparse_saso_kernel": 1},
           f"(e') routes {dict(skge.route_counts)}")
     check(Be.shape == (N3, D3), f"(e') output {tuple(Be.shape)}")
@@ -712,7 +799,8 @@ def sparse_paths(rt, dev, drive, card):
                            rt.RNGState.from_key(22))
     A_wide = A3[:16384, :256].contiguous()
     B_wide, _ = drive("SASO sketch at d=3000 (past the old d limit)",
-                      lambda: rt.sketch_general(S_wide, A_wide), {"K4": 1})
+                      lambda: rt.sketch_general(S_wide, A_wide),
+                      {"K4": 1, "K7": 1})
     check(skge.route_counts == {"sparse_saso_kernel": 1},
           f"d=3000 routes {dict(skge.route_counts)}")
     sw = S_wide.filled(dev)
@@ -912,12 +1000,12 @@ def sparse_paths(rt, dev, drive, card):
           f"{2.0 * D3 * M3 * N3 / PEAK_BF16 * 1e3:.4f} ms at "
           f"{PEAK_BF16 / 1e12:.0f} TFLOP/s bf16")
 
-    # launches: K4 on path (e), K5 on path (g)
+    # launches: K4 and K7 on path (e), K5 on path (g)
     return [entry("K4", "saso_sketch_kernel", "saso_sketch", 67,
                   e_launches["K4"], k4_abs, k4_ms, k4_plain_ms, k4_bound,
                   k4_lib_ms),
             entry("K5", "ell_spmm_kernel", "ell_spmm", 209, g_launches["K5"],
-                  k5_abs, k5_ms, k5_plain_ms, k5_bound, k5_lib_ms)]
+                  k5_abs, k5_ms, k5_plain_ms, k5_bound, k5_lib_ms)], k7
 
 
 def srht_explicit(S, dev):
@@ -1106,7 +1194,7 @@ def linalg_paths(rt, dev, drive, card, seed):
     # A through the kernels; b (one column) through the routes the gates
     # give a vector: the fixed-nnz route (d m = 2^29) and the staged one
     for op, expect, route in (
-            ("saso", {"K4": 1},
+            ("saso", {"K4": 1, "K7": 2},
              {"sparse_saso_kernel": 1, "sparse_fixed_nnz": 1}),
             ("gaussian", {"K1": 1, "K3": 1},
              {"left_fused": 1, "left_staged": 1})):
@@ -1172,7 +1260,7 @@ def linalg_paths(rt, dev, drive, card, seed):
     st_l = rt.RNGState.from_key(seed + 15)
     (ts, _), _ = drive("(l) tensor_sketch of two factors",
                        lambda: rt.tensor_sketch([A1, A2], dl, st_l),
-                       {"K4": 2})
+                       {"K4": 2, "K7": 2})
     check(skge.route_counts == {"sparse_saso_kernel": 2},
           f"(l) routes {dict(skge.route_counts)}")
     C1 = _countsketch(dl, ml, st_l).filled(dev)
@@ -1548,7 +1636,8 @@ def solver_paths(rt, dev, drive, card, seed):
         bp = randn(mp)
         st_p = rt.RNGState.from_key(seed + 25)
         (scores, _), _ = drive(f"(p) leverage_scores {mp}x{np_}, saso",
-                               lambda: la.leverage_scores(Ap, st_p), {"K4": 1})
+                               lambda: la.leverage_scores(Ap, st_p),
+                               {"K4": 1, "K7": 1})
         routes("(p)", {"sparse_saso_kernel": 1})
         A64 = Ap.double()
         q64, r64 = torch.linalg.qr(A64)
@@ -1561,7 +1650,7 @@ def solver_paths(rt, dev, drive, card, seed):
         (s8, _), _ = drive("(p) leverage_scores, embed_factor 8",
                            lambda: la.leverage_scores(Ap, st_p,
                                                       embed_factor=8),
-                           {"K4": 1})
+                           {"K4": 1, "K7": 1})
         ratio8 = s8.double() / exact
         lo8, hi8, med8 = ratio8.min().item(), ratio8.max().item(), \
             ratio8.median().item()
@@ -1583,7 +1672,8 @@ def solver_paths(rt, dev, drive, card, seed):
         breakdown("(p) leverage_scores", lambda: la.leverage_scores(Ap, st_p),
                   card)
         (xs, _), _ = drive(f"(p) sample_lsq, s={sp}",
-                           lambda: la.sample_lsq(Ap, bp, sp, st_p), {"K4": 1})
+                           lambda: la.sample_lsq(Ap, bp, sp, st_p),
+                           {"K4": 1, "K7": 1})
         ratio = (A64 @ xs.double() - bp.double()).norm().item() / r_opt
         check(ratio <= LSQ_SLACK, f"(p) sample_lsq residual ratio {ratio}")
         ms = timed("(p) sample_lsq", lambda: la.sample_lsq(Ap, bp, sp, st_p),
@@ -1735,7 +1825,7 @@ def solver_paths(rt, dev, drive, card, seed):
         st_t = rt.RNGState.from_key(seed + 29)
         (x, res, _), _ = drive(f"(t) sgmres n={nt}, basis {basis}, saso",
                                lambda: la.sgmres(At, bt, st_t, basis=basis),
-                               {"K4": 3})
+                               {"K4": 3, "K7": 3})
         routes("(t) sgmres", {"sparse_saso_kernel": 3})
         true = ((At.double() @ x.double() - bt.double()).norm()
                 / bt.double().norm()).item()
@@ -1775,7 +1865,8 @@ def solver_paths(rt, dev, drive, card, seed):
         t0 = time.perf_counter()
         ref = top_abs(torch.linalg.eigvalsh(Ap_t.double()), kt)
         ref_s = time.perf_counter() - t0
-        for sym, expect in ((True, {"K3": 1}), (False, {"K3": 1})):
+        for sym, expect in ((True, {"K3": 1}),
+                            (False, {"K3": 1, "K7": 2})):
             (th, _, _, _), _ = drive(
                 f"(t) sketched_eigs sym={sym}, planted, k={kt}",
                 lambda: la.sketched_eigs(Ap_t, kt, st_t, basis=ebasis,
@@ -3111,7 +3202,7 @@ def sharded_input_paths(rt, dev, drive, card, seed, mesh):
     x = path(f"(M10) sgmres n={nt}, basis {basis}, row-sharded A",
              lambda: la.sgmres(At_dt, bt, st, basis=basis),
              lambda: la.sgmres(At, bt, st, basis=basis), (At, bt),
-             {"K4": 3}, 2.0 * nt * nt * (basis + 1))
+             {"K4": 3, "K7": 3}, 2.0 * nt * nt * (basis + 1))
     true = ((At.double() @ x.double() - bt.double()).norm()
             / bt.double().norm()).item()
     check(true <= SGMRES_TOL, f"(M10) true residual {true}")
@@ -3150,7 +3241,7 @@ def sharded_input_paths(rt, dev, drive, card, seed, mesh):
     F_cols = [cols(F1), cols(F2)]
     st = rt.RNGState.from_key(seed + 63)
     for label, fn, expect in (("(M15) tensor_sketch", rt.tensor_sketch,
-                               {"K4": 2}),
+                               {"K4": 2, "K7": 2}),
                               ("(M16) kfjlt_sketch", rt.kfjlt_sketch, {})):
         path(f"{label} of two {ml}x{nl} factors to d = {dl}, "
              "column-sharded", lambda: fn(F_cols, dl, st),
@@ -3767,8 +3858,8 @@ def main():
     from randblas_tpu_torch.ops import _build
     from randblas_tpu_torch.ops import ell_spmm as ell
     from randblas_tpu_torch.ops import fused_sketch as fs
+    from randblas_tpu_torch.ops import saso_fill, x64_fill
     from randblas_tpu_torch.ops import saso_sketch as saso
-    from randblas_tpu_torch.ops import x64_fill
 
     dev = torch.device("cuda")
     card = sh("nvidia-smi", "--query-gpu=name,power.limit",
@@ -3800,7 +3891,8 @@ def main():
 
     counters = {"K1": fs.fused_sketch, "K2": fs.fused_sketch_colmajor,
                 "K3": fs.fill_block, "K4": saso.saso_sketch,
-                "K5": ell.blocked_ell_matmul, "K6": x64_fill.fill_block64}
+                "K5": ell.blocked_ell_matmul, "K6": x64_fill.fill_block64,
+                "K7": saso_fill.saso_fill}
 
     def reset():
         for c in counters.values():
@@ -4281,7 +4373,7 @@ def main():
 
     del A, G, A2, S_c
     torch.cuda.empty_cache()
-    sparse_kernels = sparse_paths(rt, dev, drive, card)
+    sparse_kernels, k7 = sparse_paths(rt, dev, drive, card)
     torch.cuda.empty_cache()
     linalg_paths(rt, dev, drive, card, cli.seed)
     torch.cuda.empty_cache()
@@ -4317,6 +4409,9 @@ def main():
                    k6.pop("launches"), k6.pop("err"), k6.pop("ms"),
                    k6.pop("plain_ms"), k6.pop("bound"), None, **k6),
              replaces="randblas_tpu/rng/x64.py:248"),
+        # K7 replaces no Pallas kernel (the JAX package's fill is jnp under
+        # vmap): its launches are (e)'s, its times and bound (e)'s fill's
+        k7,
     ]
     print(card)
     print(json.dumps({"kernels": kernels}))

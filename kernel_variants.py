@@ -2,8 +2,9 @@
 saso_ablation.py, fill_ablation.py, x64_ablation.py) share: the card's
 name and maximum SM clock, times by CUDA events and by torch.profiler
 device time, copies of a kernel source built with text substitutions and
-bound in place of the package's library, and the SASS census of the x64
-fill kernel K6 with the operations bound it gives.
+bound in place of the package's library, and the SASS censuses of the x64
+fill kernel K6 and of the sparse-sign fill kernel K7 with the operations
+bound they give.
 
 It imports torch and nothing of JAX. The package it builds and binds is the
 ``randblas_tpu_torch`` that ``sys.path`` finds.
@@ -104,6 +105,22 @@ def device_ms(fn, name, calls=20):
     return us / sum(e.count for e in found) / 1e3 if us else None
 
 
+def all_device_ms(fn, calls=5):
+    """Device milliseconds a call of ``fn`` in all the kernels it launches,
+    from one torch.profiler window over ``calls`` calls after one more
+    (None if the trace recorded no device time)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(event_device_us(e) for e in prof.key_averages()
+             if e.device_type == torch.autograd.DeviceType.CUDA)
+    return us / calls / 1e3 if us else None
+
+
 def build_variants(source, variants, root, logs=None):
     """One library per entry of ``variants`` ({name: [(old, new), ...]}):
     ``csrc/<source>`` of the package with each text substitution made (each
@@ -130,8 +147,9 @@ def build_variants(source, variants, root, logs=None):
     others = [(str(s), os.path.join(root, f"_{s.stem}.o"))
               for s in _build.SOURCES if s.name != source]
     jobs = [*objs.values(), *others]
-    codes, outs = _build._run_all([[nvcc, *_build.NVCC_FLAGS, "-c", "-o", o,
-                                    s] for s, o in jobs])
+    inc = ("-I", str(_build._PKG / "csrc"))   # the sources' headers
+    codes, outs = _build._run_all([[nvcc, *_build.NVCC_FLAGS, *inc, "-c",
+                                    "-o", o, s] for s, o in jobs])
     for (src, _), code, out in zip(jobs, codes, outs):
         if code:
             raise RuntimeError(f"nvcc failed for {src}:\n{out}")
@@ -154,8 +172,8 @@ def bind(path):
 
 
 def sass_of(library):
-    """``cuobjdump -sass`` of the library at ``library``; None where the
-    toolkit has no cuobjdump."""
+    """``cuobjdump -sass`` of the library or object file at ``library``;
+    None where the toolkit has no cuobjdump."""
     from randblas_tpu_torch.ops import _build
     tool = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
     if not os.path.isfile(tool):
@@ -305,6 +323,56 @@ def k6_values_per_iter(text):
         return (rows if kernel == "fill_block64_kernel"
                 else 2 * t_blocks) * w
     return per
+
+
+# -- the SASS census of K7 --------------------------------------------------
+
+K7_KERNEL = re.compile(r"saso_fill_kernelILi(\d)ELi(\d+)E")
+K7_GEN_NAMES = ("philox4x32", "philox2x32", "threefry4x32", "threefry2x32")
+# the guard of each unrolled step of K7's register-log kernel
+K7_STEP_GUARD = "if (j < k) {"
+
+
+def k7_census(k, root):
+    """{(generator, LOG): {"per_vector": {class: count}, ...}} of K7's
+    register-log kernels at ``k`` steps a vector: the SASS of a copy of
+    csrc/saso_fill.cu, compiled alone into ``root`` with each step's guard
+    fixed at ``k``, so that the unrolled steps past k are gone and the
+    straight-line function is what one thread (one vector) runs. None where
+    the toolkit has no cuobjdump."""
+    from randblas_tpu_torch.ops import _build
+    text = (_build._PKG / "csrc" / "saso_fill.cu").read_text()
+    if K7_STEP_GUARD not in text:
+        raise RuntimeError(f"{K7_STEP_GUARD!r} is not in saso_fill.cu")
+    os.makedirs(root, exist_ok=True)
+    src = os.path.join(root, f"saso_fill_k{k}.cu")
+    obj = os.path.join(root, f"saso_fill_k{k}.o")
+    with open(src, "w") as f:
+        f.write(text.replace(K7_STEP_GUARD, f"if (j < {k}) {{"))
+    (code,), (out,) = _build._run_all([[
+        _build._nvcc(), *_build.NVCC_FLAGS, "-I", str(_build._PKG / "csrc"),
+        "-c", "-o", obj, src]])
+    if code:
+        raise RuntimeError(f"nvcc failed for {src}:\n{out}")
+    sass = sass_of(obj)
+    return None if sass is None else k7_census_of(sass)
+
+
+def k7_census_of(sass_text):
+    """{(generator, LOG): {"per_vector": {class: count}, ...}} of each
+    register-log K7 instantiation in the SASS text (the scratch-log ones,
+    LOG = 0, left out): its instructions by pipe class, whole where it has
+    no loop."""
+    out = {}
+    for name, insns in parse_sass(sass_text).items():
+        m = K7_KERNEL.search(name)
+        if not m or m.group(2) == "0":
+            continue
+        counts, looped = loop_census(insns)
+        out[(K7_GEN_NAMES[int(m.group(1))], int(m.group(2)))] = dict(
+            loop=looped, instructions=sum(counts.values()),
+            per_vector=dict(sorted(counts.items())))
+    return out
 
 
 def operations_ms(per_value, values, sm_hz):

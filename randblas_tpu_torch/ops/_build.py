@@ -1,10 +1,11 @@
 """Build the CUDA kernels with nvcc and bind them with ctypes.
 
 The kernels' sources are ``csrc/*.cu``: ``fused_sketch.cu`` (K1, K2, K3),
-``saso_sketch.cu`` (K4), ``ell_spmm.cu`` (K5) and ``x64_fill.cu`` (K6).
-Each has a plain C interface (no PyTorch headers), so nvcc builds it in
-seconds. The sources compile in parallel, one nvcc per source, and link
-into one library:
+``saso_sketch.cu`` (K4), ``ell_spmm.cu`` (K5), ``x64_fill.cu`` (K6) and
+``saso_fill.cu`` (K7, which includes ``csrc/random123.cuh``). Each has a
+plain C interface (no PyTorch headers), so nvcc builds it in seconds. The
+sources compile in parallel, one nvcc per source, and link into one
+library:
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
          -Xcompiler -fPIC -Xptxas -v -c -o _build/<name>.o csrc/<name>.cu
@@ -12,9 +13,10 @@ into one library:
          -o _build/librandblas_kernels.so _build/*.o
 
 The library goes to ``randblas_tpu_torch/_build/`` (listed in .gitignore),
-keyed on a hash of the sources and the flags, and is built at first use: a
-process that never launches a kernel never needs nvcc. nvcc is looked up as
-``$CUDA_HOME/bin/nvcc``, then on ``PATH``, then under ``/usr/local/cuda``.
+keyed on a hash of the sources, the headers and the flags, and is built at
+first use: a process that never launches a kernel never needs nvcc. nvcc is
+looked up as ``$CUDA_HOME/bin/nvcc``, then on ``PATH``, then under
+``/usr/local/cuda``.
 """
 
 from __future__ import annotations
@@ -30,6 +32,7 @@ from pathlib import Path
 
 _PKG = Path(__file__).resolve().parent.parent
 SOURCES = tuple(sorted((_PKG / "csrc").glob("*.cu")))
+HEADERS = tuple(sorted((_PKG / "csrc").glob("*.cuh")))
 BUILD_DIR = _PKG / "_build"
 LIBRARY = BUILD_DIR / "librandblas_kernels.so"
 _STAMP = BUILD_DIR / "librandblas_kernels.sha256"
@@ -64,7 +67,7 @@ def _nvcc() -> str:
 
 def _digest() -> str:
     h = hashlib.sha256()
-    for src in SOURCES:
+    for src in SOURCES + HEADERS:
         h.update(src.name.encode() + b"\0" + src.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return h.hexdigest()
@@ -150,6 +153,11 @@ def _bind(lib):
         c_void_p, c_int64, c_int64, c_int, ctypes.c_uint64,
         ctypes.POINTER(ctypes.c_uint64), c_int, c_int, c_int, c_void_p]
     lib.rbt_fill_block64.restype = c_int
+    lib.rbt_saso_fill.argtypes = [
+        c_void_p, c_void_p, c_void_p, c_void_p, c_int64, c_int64, c_int64,
+        words, c_int, c_int, c_int, ctypes.c_uint64, ctypes.c_uint64,
+        c_void_p]
+    lib.rbt_saso_fill.restype = c_int
     lib.rbt_error_string.argtypes = [c_int]
     lib.rbt_error_string.restype = ctypes.c_char_p
     return lib

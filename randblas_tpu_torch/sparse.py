@@ -9,11 +9,14 @@ at counter offset i * vec_nnz.
 Every vector starts from the identity permutation and touches at most
 2 * vec_nnz positions, so the work vector is never built: reads are resolved
 against a short chronological write log. The JAX package maps one vector's
-loop over the minor axis with ``vmap``; here the counter words of every
-(vector, step) come from one batched generator call, and the loop over the
-vec_nnz steps runs once on tensors of one row per vector: a whole fill is
-one generator call and about 20 * vec_nnz small tensor ops on the device
-that holds it.
+loop over the minor axis with ``vmap``. On a CUDA device a whole fill is
+one launch of the hand-written kernel K7 (``ops/saso_fill.py``), one thread
+a vector. The plain version, ``repeated_fisher_yates_reference``, is the
+only path on the CPU and K7's yardstick on the card: the counter words of
+every (vector, step) come from one batched generator call, and the loop
+over the vec_nnz steps runs once on tensors of one row per vector, one
+generator call and about 20 * vec_nnz small tensor ops on the device that
+holds it.
 """
 
 from __future__ import annotations
@@ -27,6 +30,7 @@ import torch
 from . import profiling
 from .base import MajorAxis, require
 from .dense import default_device
+from .ops import saso_fill
 from .ops.dense_fill import _generator_words
 from .rng.bits import ctr_add_words
 from .rng.state import RNGState
@@ -99,7 +103,8 @@ def repeated_fisher_yates(state: RNGState, vec_nnz: int, dim_major: int,
                           index_dtype=torch.int32, device=None):
     """Sample ``dim_minor`` independent draws of ``vec_nnz`` indices from
     {0..dim_major-1} without replacement, plus +-1 values, on ``device``
-    (the card by default).
+    (the card by default): by one K7 launch on a CUDA device, by the plain
+    version elsewhere.
 
     Returns (idxs_major (dim_minor, vec_nnz), vals (dim_minor, vec_nnz)).
     Step j of vector i reads the counter block at state + i * vec_nnz + j
@@ -108,6 +113,35 @@ def repeated_fisher_yates(state: RNGState, vec_nnz: int, dim_major: int,
     the sign is + for even rv[1]. The first r vectors of a draw equal an
     r-vector draw.
     """
+    idxs, _, vals = _fill_entries(state, vec_nnz, dim_major, dim_minor,
+                                  dtype, index_dtype, device)
+    return (idxs.reshape(dim_minor, vec_nnz),
+            vals.reshape(dim_minor, vec_nnz))
+
+
+def _fill_entries(state, vec_nnz, dim_major, dim_minor, dtype, index_dtype,
+                  device):
+    """(major, minor, vals) of a fill, flat in minor-vector-major order
+    (minor: the minor-axis index of each entry), on ``device`` (the card by
+    default): K7 on a CUDA device, the plain version elsewhere."""
+    device = default_device(device)
+    if device.type == "cuda":
+        return saso_fill.saso_fill(state, vec_nnz, dim_major, dim_minor,
+                                   dtype, index_dtype, device)
+    idxs, vals = repeated_fisher_yates_reference(
+        state, vec_nnz, dim_major, dim_minor, dtype, index_dtype, device)
+    minor = torch.arange(dim_minor, dtype=index_dtype,
+                         device=device).repeat_interleave(vec_nnz)
+    return idxs.reshape(-1), minor, vals.reshape(-1)
+
+
+def repeated_fisher_yates_reference(state: RNGState, vec_nnz: int,
+                                    dim_major: int, dim_minor: int,
+                                    dtype=torch.float32,
+                                    index_dtype=torch.int32, device=None):
+    """The plain PyTorch version of ``repeated_fisher_yates`` (and of K7)
+    on ``device`` (the card by default), recorded as one
+    ``fisher_yates.step`` span (arg ``j``) a step."""
     require(vec_nnz <= dim_major,
             "vec_nnz must be at most the major-axis length")
     require(dim_major < 2 ** 31, "dim_major must fit in int32")
@@ -206,9 +240,10 @@ class SparseSkOp:
     def filled(self, device=None) -> "SparseSkOp":
         """An operator with its COO triplets attached. A lazy operator is
         filled on ``device`` (the card by default), recorded as the span
-        ``fill`` with one ``fisher_yates.step`` span (arg ``j``) a step; a
-        filled one is returned as it is, or moved to ``device`` when one
-        is given."""
+        ``fill``: on a CUDA device one K7 launch (span ``K7.launch``),
+        elsewhere the plain version (one ``fisher_yates.step`` span a
+        step); a filled one is returned as it is, or moved to ``device``
+        when one is given."""
         if self.known_filled:
             if device is None or self.rows.device == torch.device(device):
                 return self
@@ -218,14 +253,9 @@ class SparseSkOp:
         with profiling.span("fill"):
             d = self.dist
             dim_major, dim_minor = _dims(d)
-            idxs_major, vals = repeated_fisher_yates(
-                self.seed_state, d.vec_nnz, dim_major, dim_minor,
-                dtype=self.dtype, index_dtype=self.index_dtype,
-                device=device)
-            idxs_major = idxs_major.reshape(-1)
-            idxs_minor = torch.arange(
-                dim_minor, dtype=self.index_dtype,
-                device=idxs_major.device).repeat_interleave(d.vec_nnz)
+            idxs_major, idxs_minor, vals = _fill_entries(
+                self.seed_state, d.vec_nnz, dim_major, dim_minor, self.dtype,
+                self.index_dtype, device)
             # the sampling's major axis is the short axis for SASO, the
             # long axis for LASO
             is_wide = d.n_rows == min(d.n_rows, d.n_cols)
@@ -233,7 +263,7 @@ class SparseSkOp:
                 rows, cols = idxs_major, idxs_minor
             else:
                 rows, cols = idxs_minor, idxs_major
-            return self._with(rows, cols, vals.reshape(-1), canonical=True)
+            return self._with(rows, cols, vals, canonical=True)
 
     def materialize(self, device=None) -> torch.Tensor:
         """Dense (n_rows, n_cols) tensor (for checks; no route uses it), on

@@ -17,7 +17,7 @@ wrappers run their plain versions there, and no kernel launches).
 
 - ``COUNTERPARTS``: every test function of ``tests/test_tpu_hardware.py``
   -> the ids of the cases that port it (30 cases for 29 functions).
-- ``BRANCHES``: the Hopper branches of K1-K6, each held against its plain
+- ``BRANCHES``: the Hopper branches of K1-K7, each held against its plain
   version, with ``branch_facts`` (load mode, launch plan, slots, order)
   computed from the card-scale shapes and the recorded card's occupancy.
 - ``load_mode``: the rule of ``a_map`` in ``csrc/fused_sketch.cu`` and
@@ -48,6 +48,7 @@ import randblas_tpu_torch as rt
 from randblas_tpu_torch import skge
 from randblas_tpu_torch.ops import ell_spmm as ell
 from randblas_tpu_torch.ops import fused_sketch as fs
+from randblas_tpu_torch.ops import saso_fill
 from randblas_tpu_torch.ops import saso_sketch as saso
 from randblas_tpu_torch.ops import x64_fill
 from oracle import assert_componentwise_close
@@ -71,13 +72,14 @@ CARD = "NVIDIA H100 80GB HBM3, 700.00 W"
 CARD_MAX_ACTIVE_CLUSTERS = {8: 15, 16: 7}
 CARD_MAX_ACTIVE_CTAS = 132
 
-KERNELS = ("K1", "K2", "K3", "K4", "K5", "K6")
+KERNELS = ("K1", "K2", "K3", "K4", "K5", "K6", "K7")
 
 
 def _wrappers():
     return {"K1": fs.fused_sketch, "K2": fs.fused_sketch_colmajor,
             "K3": fs.fill_block, "K4": saso.saso_sketch,
-            "K5": ell.blocked_ell_matmul, "K6": x64_fill.fill_block64}
+            "K5": ell.blocked_ell_matmul, "K6": x64_fill.fill_block64,
+            "K7": saso_fill.saso_fill}
 
 
 # ------------------------------------------------------------ the checks
@@ -171,9 +173,9 @@ class PortOracle:
     rebuilds with the JAX package from ``spec``: "dense" (a block of a
     DenseSkOp), "sparse" (a materialised SparseSkOp), "trig" (a
     materialised TrigSkOp), "fill" (K3's plain fill), "fill64" (K6's plain
-    fill of an x64 seed), "k1", "k2" (the plain K1 and K2), "k4" (the
-    plain K4), "k5" (the plain K5) and "kfjlt" (the KFJLT's signs and
-    samples)."""
+    fill of an x64 seed), "fy" (a SparseSkOp's triplets, as its plain fill
+    gives them), "k1", "k2" (the plain K1 and K2), "k4" (the plain K4),
+    "k5" (the plain K5) and "kfjlt" (the KFJLT's signs and samples)."""
     kind: str
     spec: dict
     value: Any
@@ -533,9 +535,9 @@ def _srht(device, scale):
 
 @case("saso_onehot_panel")
 def _saso_onehot_panel(device, scale):
-    """The config-3 wide SASO through the public sketch: on the card the
-    gate takes K4 (the TPU's one-hot panels' place), on the CPU the
-    fixed-nnz route."""
+    """The config-3 wide SASO through the public sketch: on the card K7
+    fills the lazy operator and the gate takes K4 (the TPU's one-hot
+    panels' place), on the CPU the plain fill and the fixed-nnz route."""
     d, m, n, k = pick(scale, (512, 16384, 512, 8), (64, 1024, 32, 2))
     S = sparse_op(d, m, k, 31)
     A = normal(12, (m, n))
@@ -548,7 +550,7 @@ def _saso_onehot_panel(device, scale):
     if torch.device(device).type == "cuda":
         checks.append(holds("saso_profitable takes K4 at config 3",
                             skge.saso_profitable(d, m, n)))
-    return t.outcome(checks, {"K4": 1}, {"sparse_saso_kernel": 1},
+    return t.outcome(checks, {"K4": 1, "K7": 1}, {"sparse_saso_kernel": 1},
                      oracles=[orc])
 
 
@@ -562,7 +564,7 @@ def _saso_row_gather(device, scale):
     mat, orc = sparse_dense(S)
     return t.outcome([componentwise("tall SASO vs the float32 bound", got,
                                     mat, A)],
-                     {}, {"sparse_row_gather": 1}, oracles=[orc])
+                     {"K7": 1}, {"sparse_row_gather": 1}, oracles=[orc])
 
 
 @case("coo_flat_scatter_densify")
@@ -627,8 +629,10 @@ def _tensor_sketch(device, scale):
         np.add.at(oracle, (r1[i1] + r2) % d,
                   (g1[i1] * g2)[:, None] * a1n[i1] * a2n)
     err = np.linalg.norm(as_np(out) - oracle) / np.linalg.norm(oracle)
+    # on the card each factor's CountSketch (d > m: Long, the COO route) is
+    # filled by one K7 launch
     return t.outcome([at_most("tensor_sketch vs the Kronecker CountSketch",
-                              err, 1e-3)], oracles=[o1, o2])
+                              err, 1e-3)], {"K7": 2}, oracles=[o1, o2])
 
 
 @case("sgmres_pipeline")
@@ -645,9 +649,11 @@ def _sgmres(device, scale):
     x = as_np(x).astype(np.float64)
     true_rel = (np.linalg.norm(a.astype(np.float64) @ x - b)
                 / np.linalg.norm(b))
+    # on the card the lazy SASO is filled by K7 for each of its three
+    # sketches (A Q, b, the refined residual), each taken by K4
     return t.outcome([at_most("true relative residual", true_rel, 1e-3),
                       at_most("sketched residual estimate", float(res_est),
-                              2e-3)])
+                              2e-3)], {"K4": 3, "K7": 3})
 
 
 @case("single_pass_svd")
@@ -760,7 +766,8 @@ def _rgs_qr(device, scale):
                 np.linalg.norm(qn @ rn - an) / np.linalg.norm(an), 2e-4),
         at_most("||Q^T Q - I||_2", np.linalg.norm(qn.T @ qn - np.eye(k), 2),
                 2e-3),
-        holds("R upper triangular", np.allclose(rn, np.triu(rn)))])
+        holds("R upper triangular", np.allclose(rn, np.triu(rn)))],
+        {"K3": 1})   # the Gaussian operator materialized by K3; no K7
 
 
 def _masses(grid, dens, counts, label):
@@ -915,7 +922,8 @@ def _saso_kernel(device, scale, mesh):
     """K4 through its wrapper at a config-3 shape and a ragged one, then
     the public sketch_general (the route under "auto": K4 on the card) and
     distributed_sparse_sketch on a one-rank mesh (its shard asks K4's
-    gate)."""
+    gate), each of these two filling the lazy operator by K7 on the
+    card."""
     from torch.distributed.tensor import Replicate, Shard, distribute_tensor
     from randblas_tpu_torch.parallel import distributed_sparse_sketch
     checks, oracles = [], []
@@ -945,7 +953,7 @@ def _saso_kernel(device, scale, mesh):
                componentwise(f"distributed_sparse_sketch ({t3.launches}) vs "
                              "its bound", B3, *operands(
                                  t3.launches["K4"] == 1, mat, A))]
-    return t.outcome(checks, {"K4": 4}, {"sparse_saso_kernel": 1},
+    return t.outcome(checks, {"K4": 4, "K7": 2}, {"sparse_saso_kernel": 1},
                      oracles=oracles)
 
 
@@ -1100,9 +1108,11 @@ def _ihs_lsq(device, scale):
                           rcond=None)[0]
     with Tally() as t:
         x, _ = ihs_lsq(A, b, rt.RNGState.from_key(42), iters=24)
+    # on the card the lazy SASO is filled by one K7 launch
     return t.outcome([at_most(
         "||x - x_ls|| / ||x_ls||",
-        np.linalg.norm(as_np(x) - xls) / np.linalg.norm(xls), 1e-4)])
+        np.linalg.norm(as_np(x) - xls) / np.linalg.norm(xls), 1e-4)],
+        {"K4": 1, "K7": 1})
 
 
 # every test function of tests/test_tpu_hardware.py -> its cases here
@@ -1383,6 +1393,50 @@ ELL_BRANCHES = (
               order="natural", dtype="bfloat16"),
 )
 
+
+
+@dataclasses.dataclass(frozen=True)
+class FyBranch:
+    """A lazy SparseSkOp (shape, k, major) seeded with ``rng``, filled
+    through K7 by ``SparseSkOp.filled`` and by ``repeated_fisher_yates``,
+    each bit for bit against the plain version on the same device, one K7
+    launch a fill. ``carry``: counter word 0 (and word 1 of a four-word
+    counter) starts just below its top, so the vectors' counters carry
+    across words. ``index`` and ``dtype``: the operator's types. ``cpu``:
+    (shape, k) of the CPU twin, the same axis and orientation, k at most
+    12 (the JAX fill's compile time grows with k squared)."""
+    name: str
+    shape: tuple
+    k: int
+    cpu: tuple
+    rng: str = "philox4x32"
+    major: str = "Short"
+    carry: bool = False
+    index: str = "int32"
+    dtype: str = "float32"
+
+
+# each generator; k = 1, 8, 16 and past the register log (40, 100); whole
+# permutations (k = dim_major) in registers and in scratch; dim_minor off
+# K7's 256-thread block; int64 indices, float64 and float16 values; SASO
+# and LASO, wide and tall
+FY_BRANCHES = (
+    FyBranch("philox4x32_saso_wide_k8", (1024, 65536), 8, ((64, 700), 8)),
+    FyBranch("philox2x32_saso_tall_carry", (5000, 300), 4, ((300, 40), 4),
+             rng="philox2x32", carry=True),
+    FyBranch("threefry4x32_saso_wide_k16_carry", (200, 3001), 16,
+             ((12, 301), 12), rng="threefry4x32", carry=True),
+    FyBranch("threefry2x32_k1_float16", (256, 10007), 1, ((16, 333), 1),
+             rng="threefry2x32", dtype="float16"),
+    FyBranch("saso_tall_whole_permutation", (5000, 16), 16, ((300, 6), 6),
+             carry=True),
+    FyBranch("laso_wide_k40_int64_float64", (500, 4000), 40,
+             ((12, 300), 10), major="Long", index="int64",
+             dtype="float64"),
+    FyBranch("laso_tall_whole_permutation", (100, 37), 100, ((7, 5), 7),
+             rng="threefry4x32", major="Long", carry=True),
+)
+
 FILL_TRANSFORMS = ("boxmul_i32", "boxmul")
 BRANCHES = {}
 for _b in FUSED_BRANCHES:
@@ -1398,6 +1452,8 @@ for _b in ELL_BRANCHES:
 for _b in FILL64_BRANCHES:
     for _f in ("Gaussian", "Uniform"):
         BRANCHES[f"K6-{_b.name}-{_f}"] = ("K6", (_b, _f))
+for _b in FY_BRANCHES:
+    BRANCHES[f"K7-{_b.name}"] = ("K7", _b)
 
 
 def _fused_dims(b: FusedBranch, scale):
@@ -1472,6 +1528,43 @@ def _fill64_facts(b: Fill64Branch, family) -> dict:
                 row_tail=rows % K6_ROWS != 0)
 
 
+# K7's block, as csrc/saso_fill.cu sets it (test_torch_cuda_tier.py
+# checks): threads a CTA, one minor-axis vector a thread
+K7_THREADS = 256
+
+
+def _fy_op(b: FyBranch, scale) -> "rt.SparseSkOp":
+    """The branch's lazy operator at ``scale``."""
+    shape, k = (b.shape, b.k) if scale == "card" else b.cpu
+    state = rt.RNGState.from_key(len(b.name) + k, b.rng)
+    if b.carry:   # the low words just below their top
+        words = list(state.counter)
+        words[0] = 0xFFFFFFF0
+        if len(words) == 4:
+            words[1] = 0xFFFFFFFF
+        state = rt.RNGState(tuple(words), state.key, b.rng)
+    return rt.SparseSkOp(rt.SparseDist(*shape, k, rt.MajorAxis[b.major]),
+                         state, dtype=getattr(torch, b.dtype),
+                         index_dtype=getattr(torch, b.index))
+
+
+def _fy_facts(b: FyBranch) -> dict:
+    """K7's generator, k, log ("registers" or "scratch"), axis and
+    orientation, whether the counters carry, whether the last CTA is
+    partly past dim_minor, whether a vector is a whole permutation, and
+    the types, at the card shape."""
+    S = _fy_op(b, "card")
+    dim_major, dim_minor = rt.sparse._dims(S.dist)
+    return dict(rng=b.rng, k=b.k,
+                log="registers" if saso_fill.log_in_registers(b.k)
+                else "scratch",
+                major=b.major,
+                orientation="wide" if b.shape[0] <= b.shape[1] else "tall",
+                carry=b.carry, block_tail=dim_minor % K7_THREADS != 0,
+                whole_permutation=b.k == dim_major, index=b.index,
+                dtype=b.dtype)
+
+
 def _ell_dims(b: EllBranch, scale):
     if scale == "card":
         return b.m, b.k, b.nnz, b.n
@@ -1518,6 +1611,8 @@ def branch_facts(bid: str, max_active=None, max_ctas=None) -> dict:
                     splits=plan.splits)
     if kernel == "K6":
         return _fill64_facts(*b)
+    if kernel == "K7":
+        return _fy_facts(b)
     if kernel == "K3":
         b, transform = b
         colmajor, rows, cols, shift = _fill_natural(b)
@@ -1621,6 +1716,43 @@ def _branch_fill64(b: Fill64Branch, family, device, scale):
                                                     as_np(want))])
 
 
+def _branch_fy(b: FyBranch, device, scale):
+    S = _fy_op(b, scale)
+    d, st = S.dist, S.seed_state
+    dim_major, dim_minor = rt.sparse._dims(d)
+    types = dict(dtype=S.dtype, index_dtype=S.index_dtype)
+    with Tally() as t:
+        s = S.filled(device)
+        idx, vals = rt.repeated_fisher_yates(st, d.vec_nnz, dim_major,
+                                             dim_minor, device=device,
+                                             **types)
+    want_idx, want_vals = rt.sparse.repeated_fisher_yates_reference(
+        st, d.vec_nnz, dim_major, dim_minor, device=device, **types)
+    want_minor = torch.arange(dim_minor, dtype=S.index_dtype,
+                              device=device).repeat_interleave(d.vec_nnz)
+    # the sampling's major axis is the rows for a wide SASO and a tall LASO
+    wide = d.n_rows <= d.n_cols
+    major, minor = ((s.rows, s.cols) if wide == (b.major == "Short")
+                    else (s.cols, s.rows))
+    spec = dict(shape=(d.n_rows, d.n_cols), k=d.vec_nnz, major=b.major,
+                state=st.to_dict(), index=b.index, dtype=b.dtype)
+    value = tuple(as_np(x) for x in (s.rows, s.cols, s.vals))
+    return t.outcome(
+        [holds("filled: canonical triplets of the operator's types",
+               s.canonical and s.rows.dtype == s.cols.dtype == S.index_dtype
+               and s.vals.dtype == S.dtype),
+         equal("filled: major indices vs the plain version", major,
+               want_idx.reshape(-1)),
+         equal("filled: minor indices", minor, want_minor),
+         equal("filled: signs vs the plain version", s.vals,
+               want_vals.reshape(-1)),
+         equal("repeated_fisher_yates: indices vs the plain version", idx,
+               want_idx),
+         equal("repeated_fisher_yates: signs vs the plain version", vals,
+               want_vals)],
+        {"K7": 2}, oracles=[PortOracle("fy", spec, value)])
+
+
 def _branch_ell(b: EllBranch, device, scale):
     m, k, n, r, c, v = _ell_coo(b, scale)
     word_major = 0 if b.order == "plain" else 4
@@ -1650,12 +1782,14 @@ def run_branch(bid: str, device, scale) -> Outcome:
         return _branch_fill(*b, device, scale)
     if kernel == "K6":
         return _branch_fill64(*b, device, scale)
+    if kernel == "K7":
+        return _branch_fy(b, device, scale)
     return _branch_ell(b, device, scale)
 
 
 def declared_facts(bid: str) -> dict:
-    """The facts a branch declares for the recorded card (K3's, K5's and
-    K6's follow from the shapes alone)."""
+    """The facts a branch declares for the recorded card (K3's, K5's, K6's
+    and K7's follow from the shapes alone)."""
     kernel, b = BRANCHES[bid]
     if kernel in ("K1", "K2"):
         return dict(mode=b.mode, cluster=b.cluster, splits=b.splits)
@@ -1714,6 +1848,12 @@ def grid_reach(max_active=None, max_ctas=None) -> dict:
             for fact in ("row_tail", "last_step"):
                 if fact in f:
                     add(f"{name} {fact}", f[fact])
+        elif kernel == "K7":
+            for fact, value in f.items():
+                add(fact, value)
+            add("axis x orientation", (f["major"], f["orientation"]))
+            if f["whole_permutation"]:
+                add("whole permutation log", f["log"])
         else:
             add("bw", f["bw"])
             add("n", "1" if f["n"] == 1 else ">1")
@@ -1735,7 +1875,11 @@ def grid_required(max_active=None) -> dict:
     and without a shift, both store widths, a carry past counter word 0
     and its loop past grid.y; the natural kernel's row count with and
     without a partial group; the transposed kernel's last step whole, with
-    its second blocks past the edge, and partly past it."""
+    its second blocks past the edge, and partly past it; K7's four
+    generators, k = 1, 8 and 16 in registers and k past them in scratch,
+    SASO and LASO each wide and tall, counters with and without a carry, a
+    partial last CTA, a whole permutation in registers and in scratch,
+    both index types and 2-, 4- and 8-byte values."""
     max_active = CARD_MAX_ACTIVE_CLUSTERS if max_active is None \
         else max_active
     modes = {"tma_rows", "tma_cols", "direct"}
@@ -1774,6 +1918,17 @@ def grid_required(max_active=None) -> dict:
     need[("K6", "fill_block64_kernel row_tail")] = {False, True}
     need[("K6", "fill_block64_T_kernel last_step")] = {
         "whole", "second blocks past", "second blocks partly past"}
+    need.update({("K7", "rng"): set(saso_fill.GEN_CODES),
+                 ("K7", "k"): {1, 8, 16},
+                 ("K7", "log"): {"registers", "scratch"},
+                 ("K7", "axis x orientation"): {
+                     (a, o) for a in ("Short", "Long")
+                     for o in ("wide", "tall")},
+                 ("K7", "carry"): {False, True},
+                 ("K7", "block_tail"): {True},
+                 ("K7", "whole permutation log"): {"registers", "scratch"},
+                 ("K7", "index"): {"int32", "int64"},
+                 ("K7", "dtype"): {"float16", "float32", "float64"}})
     need.update({("K5", "bw"): {8, 32}, ("K5", "n"): {"1", ">1"},
                  ("K5", "order"): {"plain", "storage", "natural"},
                  ("K5", "alpha"): {"1", "other"},

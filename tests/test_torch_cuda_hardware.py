@@ -14,7 +14,7 @@ no case falls back to a plain version.
 - ``test_counterpart``: one test per case of ``COUNTERPARTS``, each a test
   function of tests/test_tpu_hardware.py at its shapes and bounds (30
   tests for 29 functions), each with the launches and routes it must show.
-- ``test_branch``: the Hopper branches of K1-K6 (``BRANCHES``), each held
+- ``test_branch``: the Hopper branches of K1-K7 (``BRANCHES``), each held
   against its plain version on the card, with its launch and the facts
   (load mode, launch plan) it must reach on the recorded card.
 - ``test_branch_grid_on_this_card``: the grid reaches every branch value

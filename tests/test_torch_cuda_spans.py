@@ -1,8 +1,10 @@
 """On the card: the port's launch spans and the profiler's trace share one
-clock. Every runtime call that launched a K1 or K4 kernel in a profiled
-window (tied to its kernel by correlation id) lies inside a ``K1.launch``
-or ``K4.launch`` span of the same window, within ``SLACK_NS``, and each
-launch span holds one. Run on a machine with a CUDA device from the
+clock. Every runtime call that launched a K1, K4 or K7 kernel in a
+profiled window (tied to its kernel by correlation id) lies inside a
+``K1.launch``, ``K4.launch`` or ``K7.launch`` span of the same window,
+within ``SLACK_NS``, and each launch span holds one. A lazy sparse
+operator's ``fill`` span on the card holds one ``K7.launch`` and no
+``fisher_yates.step``. Run on a machine with a CUDA device from the
 repository root:
 
     python -m pytest --noconftest -q tests/test_torch_cuda_spans.py
@@ -22,7 +24,8 @@ pytestmark = pytest.mark.cuda
 # section 6); the slack allows for the profiler's conversion of CUPTI's
 # timestamps to that clock.
 SLACK_NS = 2000
-KERNELS = {"K1": "fused_sketch_kernel", "K4": "saso_sketch_kernel"}
+KERNELS = {"K1": "fused_sketch_kernel", "K4": "saso_sketch_kernel",
+           "K7": "saso_fill_kernel"}
 
 
 @pytest.fixture(scope="module")
@@ -34,8 +37,18 @@ def card():
 
 
 def _calls(kernel: str, device, calls: int = 5):
-    """``calls`` sketches of a shape that takes ``kernel`` on the card."""
+    """``calls`` sketches of a shape that takes ``kernel`` on the card
+    (K7: ``calls`` fills of a lazy sparse operator)."""
     import randblas_tpu_torch as rt
+    if kernel == "K7":
+        ops = [rt.SparseSkOp(rt.SparseDist(1024, 16384, 8),
+                             rt.RNGState.from_key(i)) for i in range(calls)]
+
+        def fill():
+            for S in ops:
+                S.filled(device)
+            torch.cuda.synchronize(device)
+        return fill
     gen = torch.Generator(device=device).manual_seed(7)
     a = torch.randn(16384, 2048, device=device, generator=gen)
     if kernel == "K1":
@@ -97,3 +110,20 @@ def test_launch_calls_lie_inside_their_launch_spans(card, kernel):
         f"{len(margins)} runtime launches of {KERNELS[kernel]} for "
         f"{len(mine)} spans")
     assert max(margins) <= SLACK_NS, margins
+
+
+def test_card_fill_span_holds_one_k7_launch(card):
+    """On the card a lazy operator's ``fill`` span holds one ``K7.launch``
+    and none of the plain version's ``fisher_yates.step`` spans."""
+    import randblas_tpu_torch as rt
+    from randblas_tpu_torch import profiling
+    from randblas_tpu_torch.ops import saso_fill
+    S = rt.SparseSkOp(rt.SparseDist(1024, 16384, 8), rt.RNGState.from_key(3))
+    launches = saso_fill.saso_fill.launches
+    with profiling.recording() as rec:
+        rt.fill_sparse(S, device=card)
+    torch.cuda.synchronize(card)
+    assert saso_fill.saso_fill.launches == launches + 1
+    tree = [(s.name, None if s.parent is None else rec.spans[s.parent].name)
+            for s in rec.spans]
+    assert tree == [("fill", None), ("K7.launch", "fill")], tree

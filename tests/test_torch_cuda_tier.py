@@ -4,17 +4,17 @@ its cases, tests/_torch_cuda_cases.py):
 - completeness: ``COUNTERPARTS`` maps every test function of
   tests/test_tpu_hardware.py (found by ``ast``) to the cases that port it;
 - branch coverage: the branch grid reaches every load mode, cluster size,
-  split count, K4 KMAX, K3 kernel and transform, K5 order and slot width
-  and K6 kernel, generator and family it lists (``grid_required``) with
-  the occupancy the recorded card reported, and each branch declares the
-  facts its shapes give there;
+  split count, K4 KMAX, K3 kernel and transform, K5 order and slot width,
+  K6 kernel, generator and family and K7 generator, log and orientation it
+  lists (``grid_required``) with the occupancy the recorded card reported,
+  and each branch declares the facts its shapes give there;
 - twins: every case at ``scale="cpu"`` on CPU tensors, where the wrappers
   run their plain versions, against the same checks, with no kernel
   launched; each oracle the port computed itself (a materialised
-  operator, the plain fill, the plain K1, K2, K4, K5 or K6) is held
-  against the JAX package's counterpart at the same seed: Uniform values
-  and sparse operators bit for bit, Gaussian values within the
-  cross-platform tolerance (rtol = atol = 2e-3, rng/transforms.py; K6's
+  operator, the plain fill, the plain K1, K2, K4, K5 or K6, a sparse
+  operator's triplets) is held against the JAX package's counterpart at
+  the same seed: Uniform values, sparse operators and triplets bit for
+  bit, Gaussian values within the cross-platform tolerance (rtol = atol = 2e-3, rng/transforms.py; K6's
   float64 ones within X64_GAUSS_ULP of the JAX host engine), products
   normalised by max |want| within 1e-4 (K1, K2; 1e-2 for bf16 data) and
   1e-5 (K4, K5), the JAX kernels in interpret mode;
@@ -85,6 +85,19 @@ def test_k6_geometry_is_the_kernels():
                                * const("X64_T_BLOCKS"))
 
 
+def test_k7_geometry_is_the_kernels():
+    """The K7 block and register log the branch facts assume are
+    csrc/saso_fill.cu's."""
+    import re
+    from randblas_tpu_torch.ops import saso_fill
+    src = (TESTS.parent / "randblas_tpu_torch" / "csrc"
+           / "saso_fill.cu").read_text()
+    assert cases.K7_THREADS == int(re.search(
+        r"constexpr int kThreads = (\d+);", src).group(1))
+    assert saso_fill.REGISTER_LOG == int(re.search(
+        r"constexpr int kRegisterLog = (\d+);", src).group(1))
+
+
 def test_load_mode_follows_a_map():
     x = torch.zeros((64, 36))
     assert cases.load_mode(x) == "tma_rows"
@@ -127,6 +140,19 @@ def _norm_err(got, want):
 
 
 @functools.lru_cache(maxsize=None)
+def _sparse_triplets(shape, k, major, dtype, index):
+    """The JAX package's SparseSkOp.filled triplets for one distribution
+    and its types, jitted once."""
+    dist = rb.SparseDist(*shape, k, rb.MajorAxis[major])
+
+    def fill(state):
+        s = rb.SparseSkOp(dist, state, dtype=getattr(jnp, dtype),
+                          index_dtype=getattr(jnp, index)).filled()
+        return s.rows, s.cols, s.vals
+    return jax.jit(fill)
+
+
+@functools.lru_cache(maxsize=None)
 def _sparse_materialize(shape, k, major):
     """The JAX package's SparseSkOp.materialize for one distribution,
     jitted once (it runs the sampler op by op otherwise, seconds a call)."""
@@ -165,6 +191,13 @@ def jax_agrees(orc: cases.PortOracle):
         want = _sparse_materialize(tuple(s["shape"]), s["k"], s["major"])(
             rb.RNGState.from_dict(s["state"]))
         np.testing.assert_array_equal(value, np.asarray(want))
+    elif orc.kind == "fy":
+        want = _sparse_triplets(tuple(s["shape"]), s["k"], s["major"],
+                                s["dtype"], s["index"])(
+            rb.RNGState.from_dict(s["state"]))
+        for got, w in zip(value, want):
+            assert got.dtype == np.asarray(w).dtype, (got.dtype, w.dtype)
+            np.testing.assert_array_equal(got, np.asarray(w))
     elif orc.kind == "trig":
         jS = rb.TrigSkOp(rb.TrigDist(s["d"], s["m"]),
                          rb.RNGState.from_dict(s["state"]))
