@@ -4,9 +4,35 @@ the measured window, the trace, and the comparison with the reference.
 Everything a cell is made of is found by name: ``BENCHMARK.json`` names
 the cell's configuration (its ``file``), its traffic mix
 (``traffic/<mix>.json``) and its metrics (``metrics/<metric>.py``, each
-with ``read(summary)``); ``cells/<cell>.json`` gives the route and
-launches the cell states, the number of calls the reference checks, and
-the limit of each number compared.
+with ``read(summary)``); the configuration's ``call`` (``sketch`` where
+it names none) names the module of what a call does
+(``calls/<call>.py``); ``cells/<cell>.json`` gives the route (or
+``routes``: each route's count a call) and launches the cell states, the
+number of calls the reference checks, and the limit of each number
+compared.
+
+A call module has four members:
+
+- ``Call(config, traffic, seed, device, rank=0, world=1, mesh=None)``,
+  the calls of one cell on one process, on its ``device``: ``key(i)``,
+  ``call(i, spans=None, counts=None)``, ``exact_part(i)``,
+  ``control_part(i, precision)``, ``local(out)`` and
+  ``judge(i, out, exact, control=False) -> dict`` (the numbers compared,
+  by the names the cell's limits use). Where ``spans`` is a dict, a call
+  appends to it the seconds of its host-clock spans by name; it is given
+  only in an untraced window of its own, where the profiler's cost is not
+  in them. Where ``counts`` is a dict, a call appends to it what it
+  counted (say, the steps of a solve) by name; it is given in the traced
+  window. ``metrics/`` readers read them as ``summary["spans"]`` and
+  ``summary["counts"]``;
+- ``work(config, counts) -> (operations, bytes)``: one call's count of
+  work for the roofline, the mean over the traced window's calls, which
+  reported ``counts`` (work that depends on the data is counted from
+  them);
+- ``precision(config, expect) -> str``: the precision that bounds a call;
+  the control runs one step below it;
+- ``check(spec) -> None``: raises ValueError on a configuration, traffic
+  or cell file that the call cannot take.
 """
 
 from __future__ import annotations
@@ -23,9 +49,9 @@ from pathlib import Path
 
 import torch
 
-from . import trace
+from . import roofline, trace
 from .reference import compare
-from .workload import Workload, derive, p95, sync as _sync
+from .workload import derive, p95, sync as _sync
 
 ROOT = Path(__file__).resolve().parent
 BENCHMARK = ROOT.parent / "BENCHMARK.json"
@@ -34,7 +60,8 @@ KERNELS = {"K1": ("fused_sketch", "fused_sketch"),
            "K3": ("fused_sketch", "fill_block"),
            "K4": ("saso_sketch", "saso_sketch"),
            "K5": ("ell_spmm", "blocked_ell_matmul"),
-           "K6": ("x64_fill", "fill_block64")}
+           "K6": ("x64_fill", "fill_block64"),
+           "K7": ("saso_fill", "saso_fill")}
 FORBIDDEN = ("jax", "jaxlib", "flax", "randblas_tpu")
 GIB = float(1 << 30)
 
@@ -51,8 +78,10 @@ def find_cell(name: str, bench_path: Path = BENCHMARK,
               here: Path = ROOT) -> dict:
     """The cell ``name`` of the benchmark at ``bench_path`` with everything
     it is made of: its entry, configuration (the ``file`` the benchmark
-    names), traffic and stated expectations (under ``here``) and the
-    metrics it reports."""
+    names), its call's module, traffic and stated expectations (under
+    ``here``, which the spec keeps for the metrics' readers) and the
+    metrics it reports. Raises where the call module is
+    missing or its ``check`` refuses the cell."""
     bench = _json(bench_path)
     root = bench_path.parent
     cells = {w["name"]: w for w in bench["workloads"]}
@@ -69,15 +98,42 @@ def find_cell(name: str, bench_path: Path = BENCHMARK,
     per_layer = [m for m in bench["per_layer"]
                  if name in m.get("workloads", [])
                  or ("workloads" not in m and m["moves"] in moved)]
-    return {
+    config = _json(root / configs[cell["config"]]["file"])
+    spec = {
         "cell": cell,
-        "config": _json(root / configs[cell["config"]]["file"]),
+        "config": config,
+        "call": _load("calls", config.get("call", "sketch"), here),
         "traffic": _json(here / "traffic" / f"{cell['traffic']}.json"),
         "expect": _json(here / "cells" / f"{name}.json"),
         "end_to_end": e2e,
         "per_layer": per_layer,
         "run_seconds": bench["run_seconds"],
+        "here": here,
     }
+    spec["call"].check(spec)
+    return spec
+
+
+def _load(kind: str, name: str, here: Path):
+    """The module ``<kind>/<name>.py`` under ``here``."""
+    path = here / kind / f"{name}.py"
+    if not path.is_file():
+        raise FileNotFoundError(f"no {kind[:-1]} module {path}")
+    spec = importlib.util.spec_from_file_location(
+        f"portbench_{kind[:-1]}_{name}", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def least_seconds(spec: dict, counts: dict) -> float:
+    """The least time of one call of the cell on its cards, from its call
+    module's ``work`` (given what the window's calls ``counts``) and
+    ``precision``."""
+    call, config = spec["call"], spec["config"]
+    return roofline.least_seconds(*call.work(config, counts),
+                                  config["chips"],
+                                  call.precision(config, spec["expect"]))
 
 
 def quantity(metric: str) -> str:
@@ -90,12 +146,7 @@ def quantity(metric: str) -> str:
 def reader(metric: str, here: Path = ROOT):
     """The ``read`` function of ``metrics/<quantity>.py`` under ``here``:
     a metric split over groups of cells has one reader."""
-    q = quantity(metric)
-    spec = importlib.util.spec_from_file_location(
-        f"portbench_metric_{q}", here / "metrics" / f"{q}.py")
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod.read
+    return _load("metrics", quantity(metric), here).read
 
 
 def forbidden_modules() -> list:
@@ -208,12 +259,13 @@ class Ranks:
         return out
 
 
-def window(wl: Workload, ranks: Ranks, seconds: float, samples: int,
-           seed: int, spans=None, first: int = 0) -> dict:
-    """Closed loop, one caller: call after call, from call ``first`` on,
-    until ``seconds`` have passed on rank 0's clock; each call ends when
-    its output is ready (a synchronize, and on a mesh the barrier that
-    follows)."""
+def window(wl, ranks: Ranks, seconds: float, samples: int,
+           seed: int, spans=None, first: int = 0, counts=None) -> dict:
+    """Closed loop, one caller: call after call of ``wl`` (a call module's
+    ``Call``), from call ``first`` on, until ``seconds`` have passed on
+    rank 0's clock; each call ends when its output is ready (a
+    synchronize, and on a mesh the barrier that follows). ``spans`` and
+    ``counts`` go to every call (``Call.call``)."""
     device = wl.device
     res = Reservoir(samples, seed, first)
     lat, failed, i = [], 0, first
@@ -221,7 +273,7 @@ def window(wl: Workload, ranks: Ranks, seconds: float, samples: int,
     while True:
         tc = time.perf_counter()
         try:
-            out = wl.call(i, spans)
+            out = wl.call(i, spans, counts)
             _sync(device)
         except Exception:       # a call that raises counts as failed
             if not failed:
@@ -239,17 +291,18 @@ def window(wl: Workload, ranks: Ranks, seconds: float, samples: int,
             "attempted": i - first, "failed": failed, "latencies": lat, "samples": res.kept}
 
 
-def judge(wl: Workload, ranks: Ranks, samples, control=None) -> tuple:
+def judge(wl, ranks: Ranks, samples, control=None) -> tuple:
     """(program readings, control readings or None) over the sampled
-    calls: each output against the exact product, and with ``control``
-    (a precision) the control in the program's place."""
+    calls of ``wl`` (a call module's ``Call``): each output against the
+    exact one, and with ``control`` (a precision) the control in the
+    program's place, both by the call's ``judge``."""
     prog, ctrl = [], []
     for i, out in samples:
         exact = ranks.total(wl.exact_part(i))
         prog.append(wl.judge(i, out, exact))
         if control is not None:
             got = ranks.total(wl.control_part(i, control))
-            ctrl.append(compare.gaps(got, exact))
+            ctrl.append(wl.judge(i, got, exact, control=True))
         _sync(wl.device)
     gather = ranks.gather((prog, ctrl))
     prog = [r for p, _ in gather for r in p]
@@ -263,8 +316,8 @@ def run(spec: dict, seed: int, seconds: float, traced: bool, device,
     device = torch.device(device)
     ranks = Ranks(mesh)
     steps = [("start", time.time() - t0_wall)]
-    wl = Workload(spec["config"], spec["traffic"], seed, device, ranks.rank,
-                  ranks.world, mesh)
+    wl = spec["call"].Call(spec["config"], spec["traffic"], seed, device,
+                           ranks.rank, ranks.world, mesh)
     _sync(device)
     steps.append(("data", time.time() - t0_wall))
     for j in (1, 2):                       # warm-up: every shape it uses
@@ -290,12 +343,15 @@ def run(spec: dict, seed: int, seconds: float, traced: bool, device,
         # the profiler's cost a launch would be in them
         spans = {}
         taken.append(window(wl, ranks, seconds, samples, seed, spans))
+    # counts read the same under the profiler: the traced window takes them
+    counts = {} if traced else None
     _reset_counters()
     rec = trace.Recorder() if traced else contextlib.nullcontext()
     with rec:
         with (rec.window() if traced else contextlib.nullcontext()):
             w = window(wl, ranks, seconds, samples, seed,
-                       first=sum(t["attempted"] for t in taken))
+                       first=sum(t["attempted"] for t in taken),
+                       counts=counts)
     taken.append(w)
     peak_window = torch.cuda.max_memory_allocated(device) if cuda else 0
     routes, launches = _read_counters()
@@ -316,8 +372,8 @@ def run(spec: dict, seed: int, seconds: float, traced: bool, device,
             "call_p95_s": p95(lat) if lat else None,
             "peak_setup": peak_setup, "peak_window": peak_window,
             "routes": routes, "launches": launches, "summary": summary,
-            "spans": spans or {}, "checks": worst, "lines": lines,
-            "forbidden": forbidden_modules()}
+            "spans": spans or {}, "counts": counts or {}, "checks": worst,
+            "lines": lines, "forbidden": forbidden_modules()}
 
 
 def calibrate(spec: dict, seeds, seconds: float, controls: int, device,
@@ -325,15 +381,16 @@ def calibrate(spec: dict, seeds, seconds: float, controls: int, device,
     """The readings that limits are set from: for each seed a window of
     ``seconds`` at the cell's load, the program's numbers over its sampled
     calls, and on the first ``controls`` seeds the control's, in the
-    precision just below the one the configuration states for the route.
+    precision just below the one that bounds the call (its module's
+    ``precision``).
     Yields one dict a seed (on every rank; rank 0 prints)."""
     from .reference.sketch import BELOW
     device = torch.device(device)
     ranks = Ranks(mesh)
-    precision = spec["config"]["precision"][spec["expect"]["route"]]
+    precision = spec["call"].precision(spec["config"], spec["expect"])
     for n, seed in enumerate(seeds):
-        wl = Workload(spec["config"], spec["traffic"], seed, device,
-                      ranks.rank, ranks.world, mesh)
+        wl = spec["call"].Call(spec["config"], spec["traffic"], seed, device,
+                               ranks.rank, ranks.world, mesh)
         wl.call(-1)
         _sync(device)
         ranks.barrier()

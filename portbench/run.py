@@ -33,7 +33,7 @@ import sys  # noqa: E402
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))))
 
-from portbench import harness, launch, roofline, trace  # noqa: E402
+from portbench import harness, launch, trace  # noqa: E402
 
 T_IMPORTS = time.time()
 
@@ -55,12 +55,12 @@ def _end_to_end(spec: dict, parts: list) -> dict:
 
 def _summary(spec: dict, parts: list) -> dict:
     """What the per-layer readers read: the trace of every rank (busy and
-    window averaged over the cards), rank 0's counts, spans and the
-    call's least time."""
+    window averaged over the cards), rank 0's spans and counts, and the
+    call's least time (from its call module's ``work``, given those
+    counts, and ``precision``)."""
     p0 = parts[0]
     w = p0["window"]
     sums = [p["summary"] for p in parts]
-    precision = spec["config"]["precision"][spec["expect"]["route"]]
     return {
         "calls": w["attempted"] - w["failed"],
         "chips": len(parts),
@@ -71,7 +71,8 @@ def _summary(spec: dict, parts: list) -> dict:
         "ops_s": sums[0]["ops_s"],
         "gaps_s": sums[0]["gaps_s"],
         "spans": p0["spans"],
-        "least_s": roofline.least_seconds(spec["config"], precision),
+        "counts": p0["counts"],
+        "least_s": harness.least_seconds(spec, p0["counts"]),
     }
 
 
@@ -85,7 +86,7 @@ def result(spec: dict, parts: list, traced: bool, kind: str) -> dict:
         if traced:
             s = _summary(spec, parts)
             for m in spec["per_layer"]:
-                v = harness.reader(m["name"])(s)
+                v = harness.reader(m["name"], spec["here"])(s)
                 if v is not None:
                     metrics[m["name"]] = {"value": v, "unit": m["unit"]}
         else:
@@ -107,7 +108,7 @@ def result(spec: dict, parts: list, traced: bool, kind: str) -> dict:
         out["breakdown"] = {"device_ops": trace.top(sums[0]["ops_s"]),
                             "idle_gaps": trace.top(sums[0]["gaps_s"])}
     limits = spec["expect"]["limits"]
-    checks = {k: {"value": p0["checks"][k], "limit": lim}
+    checks = {k: {"value": p0["checks"].get(k, math.inf), "limit": lim}
               for k, lim in limits.items()}
     out["correct"] = bool(done and not failed and all(
         math.isfinite(c["value"]) and c["value"] <= c["limit"]
@@ -118,20 +119,24 @@ def result(spec: dict, parts: list, traced: bool, kind: str) -> dict:
 
 def _route_line(spec: dict, parts: list) -> tuple:
     """(line, mismatch) of the routes and launches a call took on each
-    rank against the ones the cell states."""
+    rank against the ones the cell states: ``routes`` (each route's count
+    a call) where it gives them, else its one ``route`` once a call."""
     want = spec["expect"]
+    routes_want = {k: float(v) for k, v in
+                   want.get("routes", {want.get("route"): 1}).items()}
     per_rank, bad = [], False
     for p in parts:
         done = max(1, p["window"]["attempted"] - p["window"]["failed"])
         routes = {k: v / done for k, v in p["routes"].items()}
         launches = {k: v / done for k, v in p["launches"].items()}
         per_rank.append({"routes": routes, "launches": launches})
-        if routes and routes != {want["route"]: 1.0}:
+        if routes and routes != routes_want:
             bad = True
         if launches != {k: float(v) for k, v in want["launches"].items()}:
             bad = True
     line = json.dumps({"portbench_calls": {
-        "stated": {"route": want["route"], "launches": want["launches"]},
+        "stated": {k: want[k] for k in ("route", "routes", "launches")
+                   if k in want},
         "per_call_by_rank": per_rank,
         "window": parts[0]["window"]}})
     return line, bad

@@ -215,20 +215,21 @@ def measure(spec: dict, seed: int, seconds: float, pairs: int, device,
     import torch
     from randblas_tpu_torch import profiling
     from portbench import harness
-    from portbench.workload import Workload, sync
+    from portbench.workload import sync
     device = torch.device(device)
     ranks = harness.Ranks(mesh)
-    wl = Workload(spec["config"], spec["traffic"], seed, device, ranks.rank,
-                  ranks.world, mesh)
+    wl = spec["call"].Call(spec["config"], spec["traffic"], seed, device,
+                           ranks.rank, ranks.world, mesh)
     for j in (1, 2):
         wl.call(-j)
         sync(device)
         ranks.barrier()
     samples, first = spec["expect"]["samples"], 0
 
-    def window(spans=None):
+    def window(spans=None, counts=None):
         nonlocal first
-        w = harness.window(wl, ranks, seconds, samples, seed, spans, first)
+        w = harness.window(wl, ranks, seconds, samples, seed, spans, first,
+                           counts)
         first += w["attempted"]
         done = w["attempted"] - w["failed"]
         return w, done
@@ -242,8 +243,9 @@ def measure(spec: dict, seed: int, seconds: float, pairs: int, device,
     part["plans"] = plans(spans, done)
 
     prof = Recorder()
+    part["counts"] = {}
     with profiling.recording() as rec, prof, prof.window():
-        w, done = window()
+        w, done = window(counts=part["counts"])
     spans = _mine(rec.spans)
     dev, runtime, clock = prof.events()
     part["traced"] = summarize(dev, runtime, [tuple(s[:5]) for s in spans],
@@ -269,24 +271,24 @@ def measure(spec: dict, seed: int, seconds: float, pairs: int, device,
 
 def report(spec: dict, parts: list) -> dict:
     """The printed line from every rank's part (rank order)."""
-    from portbench import harness, roofline
+    from portbench import harness
     p0 = parts[0]
     s = reading_summary(p0["span_window"], [p["traced"] for p in parts])
     new = {q: harness.reader(q)(s) for q in QUANTITIES}
     sums = [p["trace"] for p in parts]
-    precision = spec["config"]["precision"][spec["expect"]["route"]]
     old_summary = {
         "calls": p0["calls_traced"], "chips": len(parts),
         "window_s": statistics.fmean(t["window_s"] for t in sums),
         "busy_s": statistics.fmean(t["busy_s"] for t in sums),
         "busy_s_rank0": sums[0]["busy_s"], "kernels": sums[0]["kernels"],
         "ops_s": sums[0]["ops_s"], "gaps_s": sums[0]["gaps_s"],
-        "spans": {}, "least_s": roofline.least_seconds(spec["config"],
-                                                        precision)}
+        "spans": {}, "counts": p0["counts"],
+        "least_s": harness.least_seconds(spec, p0["counts"])}
     old = {}
     for m in spec["per_layer"]:
         if m["source"] == "device_trace":
-            old[m["name"]] = harness.reader(m["name"])(old_summary)
+            old[m["name"]] = harness.reader(m["name"], spec["here"])(
+                old_summary)
     return {"portbench_spans": {
         "new": new, "existing_traced": old,
         "span_us_median": {k: 1e6 * statistics.median(v)

@@ -13,7 +13,6 @@ import randblas_tpu_torch as rt
 from _pb_tiny import tiny
 from portbench import harness
 from portbench.reference import compare, sketch
-from portbench.workload import Workload
 
 # the flags that put each route's plain version on the CPU
 PLAIN = {"dense_gauss_f32.whole": {"use_fused": True},
@@ -24,11 +23,12 @@ PLAIN = {"dense_gauss_f32.whole": {"use_fused": True},
 def test_control_fails_where_the_program_passes(cell):
     spec = tiny(cell)
     limits = spec["expect"]["limits"]
-    precision = spec["config"]["precision"][spec["expect"]["route"]]
+    precision = spec["call"].precision(spec["config"], spec["expect"])
     with rt.flags(**PLAIN[cell]):
         part = harness.run(spec, 2 ** 31 + 3, 0.2, False, "cpu", time.time())
     assert all(part["checks"][k] <= v for k, v in limits.items())
-    wl = Workload(spec["config"], spec["traffic"], 2 ** 31 + 3, "cpu")
+    wl = spec["call"].Call(spec["config"], spec["traffic"], 2 ** 31 + 3,
+                           "cpu")
     readings = []
     for i in range(3):
         exact = wl.exact_part(i)

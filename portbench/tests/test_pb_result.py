@@ -20,7 +20,8 @@ def _part(checks, traced=False, failed=0):
             "call_p95_s": 0.0105, "peak_setup": 2 << 30,
             "peak_window": 3 << 29, "routes": {"left_fused": 1000},
             "launches": {"K1": 1000}, "summary": summary,
-            "spans": {}, "checks": checks, "lines": [], "forbidden": []}
+            "spans": {}, "counts": {}, "checks": checks, "lines": [],
+            "forbidden": []}
 
 
 GOOD = {"rel_fro": 0.0024, "max_rel": 0.014}
@@ -96,3 +97,39 @@ def test_route_mismatch_is_reported():
     assert prun._route_line(spec, [part])[1] is False
     part["routes"] = {"left_staged": 1000}
     assert prun._route_line(spec, [part])[1] is True
+
+
+def test_stated_routes_count_each_route_a_call():
+    """A cell that states ``routes`` is held to each route's count a call;
+    one that states a ``route`` to that route once a call."""
+    spec = dict(harness.find_cell(CELL))
+    spec["expect"] = {"routes": {"sparse_fixed_nnz": 2, "left_fused": 1},
+                      "launches": {"K1": 1}}
+    part = dict(_part(GOOD), routes={"sparse_fixed_nnz": 2000,
+                                     "left_fused": 1000})
+    line, mismatch = prun._route_line(spec, [part])
+    assert mismatch is False
+    assert json.loads(line)["portbench_calls"]["stated"] == spec["expect"]
+    part["routes"] = {"sparse_fixed_nnz": 1000, "left_fused": 1000}
+    assert prun._route_line(spec, [part])[1] is True
+
+
+@pytest.mark.parametrize("launches,mismatch", [
+    ({"K4": 1000, "K7": 1000}, False),
+    ({"K4": 1000}, True)])
+def test_fresh_states_its_fill_kernel(launches, mismatch):
+    """K7, the operator fill, launches once a call of ``fresh`` beside K4,
+    and is counted."""
+    spec = harness.find_cell("saso_k8_f32.fresh")
+    part = dict(_part(GOOD), routes={"sparse_saso_kernel": 1000},
+                launches=launches)
+    line, bad = prun._route_line(spec, [part])
+    assert bad is mismatch
+    assert json.loads(line)["portbench_calls"]["stated"] == {
+        "route": "sparse_saso_kernel", "launches": {"K4": 1, "K7": 1}}
+
+
+def test_the_fill_kernel_is_counted(monkeypatch):
+    from randblas_tpu_torch.ops import saso_fill
+    monkeypatch.setattr(saso_fill.saso_fill, "launches", 3)
+    assert harness._read_counters()[1]["K7"] == 3
