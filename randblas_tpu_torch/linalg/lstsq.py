@@ -13,6 +13,15 @@ card a Gaussian embedding runs K1 and a SASO one the Fisher–Yates fill and
 K4. The iterations are Python loops on the host, one convergence test (a
 device sync) per step, with the JAX package's stopping rules.
 
+Spans (``profiling.span``; no-ops unless a ``recording()`` is on):
+``sketch_and_precondition`` (args ``operator``, ``d``) holds
+``precondition`` (the sketch pair, the QR and the warm start; no
+synchronize at its end) and ``cgls``; ``cgls`` (every ``_cgls`` caller:
+``cgls``, ``sketch_and_precondition``, ``ridge_lsq``) holds the initial
+residual and one ``cgls.step`` (arg ``j``) a step, each ended once its
+convergence test has returned, and records the count it returns as
+``steps``.
+
 ``mesh=`` (a ('model', 'data') DeviceMesh of ``randblas_tpu_torch.parallel``)
 shards A's rows over 'data': the sketch runs through the distributed layer
 ('gaussian' through ``distributed_sketch``, 'saso' through
@@ -29,6 +38,7 @@ from typing import Callable, Optional, Tuple
 
 import torch
 
+from .. import profiling
 from ..base import require
 from ..rng.state import RNGState
 from ..skge import sketch_general
@@ -119,30 +129,38 @@ def _cgls(matvec, rmatvec, b, n, *, x0, tol, maxiter, sumsq):
     bb = b[:, None] if vec else b
     if tol is None:
         tol = 100.0 * torch.finfo(bb.dtype).eps
-    x = (bb.new_zeros((n, bb.shape[1])) if x0 is None
-         else (x0[:, None] if vec else x0))
-    r = bb - matvec(x)
-    s = rmatvec(r)
-    gamma = (s * s).sum(dim=0)
-    if x0 is None:
-        gamma_ref = gamma
-    else:
-        sb = rmatvec(bb)
-        gamma_ref = (sb * sb).sum(dim=0)
-    thresh = torch.clamp(tol * tol * gamma_ref, min=torch.finfo(bb.dtype).tiny)
-    p, x_best, gamma_best, k = s, x, gamma, 0
-    while _keep_going(gamma, thresh, gamma_best, k, maxiter):
-        q = matvec(p)
-        alpha = _ratio(gamma, sumsq(q))
-        x = x + alpha * p
-        r = r - alpha * q
+    with profiling.span("cgls") as span:
+        x = (bb.new_zeros((n, bb.shape[1])) if x0 is None
+             else (x0[:, None] if vec else x0))
+        r = bb - matvec(x)
         s = rmatvec(r)
-        gamma_new = (s * s).sum(dim=0)
-        improved = gamma_new < gamma_best
-        x_best = torch.where(improved[None, :], x, x_best)
-        gamma_best = torch.where(improved, gamma_new, gamma_best)
-        p = s + _ratio(gamma_new, gamma) * p
-        gamma, k = gamma_new, k + 1
+        gamma = (s * s).sum(dim=0)
+        if x0 is None:
+            gamma_ref = gamma
+        else:
+            sb = rmatvec(bb)
+            gamma_ref = (sb * sb).sum(dim=0)
+        thresh = torch.clamp(tol * tol * gamma_ref,
+                             min=torch.finfo(bb.dtype).tiny)
+        p, x_best, gamma_best, k = s, x, gamma, 0
+        go = _keep_going(gamma, thresh, gamma_best, k, maxiter)
+        while go:
+            # a step's span ends once its convergence test (a device
+            # sync) has returned, so it holds the step's device time
+            with profiling.span("cgls.step", j=k):
+                q = matvec(p)
+                alpha = _ratio(gamma, sumsq(q))
+                x = x + alpha * p
+                r = r - alpha * q
+                s = rmatvec(r)
+                gamma_new = (s * s).sum(dim=0)
+                improved = gamma_new < gamma_best
+                x_best = torch.where(improved[None, :], x, x_best)
+                gamma_best = torch.where(improved, gamma_new, gamma_best)
+                p = s + _ratio(gamma_new, gamma) * p
+                gamma, k = gamma_new, k + 1
+                go = _keep_going(gamma, thresh, gamma_best, k, maxiter)
+        span.set(steps=k)
     return (x_best[:, 0] if vec else x_best), k, gamma_best
 
 
@@ -289,25 +307,27 @@ def sketch_and_precondition(a, b, state: RNGState, *, d: Optional[int] = None,
     require(m >= n, "sketch_and_precondition expects a tall system")
     d = min(2 * n if d is None else d, m)
     require(d >= n, "sketch size d must be >= n")
-    if warm_start:
-        sa, sb, nxt = _sketch_pair(a, b, d, state, operator, vec_nnz, dtype,
-                                   mesh=mesh)
-        q, r = torch.linalg.qr(sa)
-        y0 = q.T @ sb                       # R x_sketched, in y variables
-    else:
-        # a cold start needs only R: no sketch of b, no Q
-        sa, _, nxt = _sketch_pair(a, None, d, state, operator, vec_nnz,
-                                  dtype, mesh=mesh)
-        r = torch.linalg.qr(sa, mode="r")[1]
-        y0 = None
-    solve_r, solve_rt = _solvers(r)
-    rows = _Rows(a, b, mesh)
-    bb = rows.b if b.dim() > 1 else rows.b[:, None]
-    y, iters, _ = _cgls(lambda v: rows.apply(solve_r(v)),
-                        lambda rr: solve_rt(rows.apply_t(rr)),
-                        bb.to(sa.dtype), n, x0=y0, tol=tol, maxiter=maxiter,
-                        sumsq=rows.sumsq)
-    x = solve_r(y)
+    with profiling.span("sketch_and_precondition", operator=operator, d=d):
+        with profiling.span("precondition"):
+            if warm_start:
+                sa, sb, nxt = _sketch_pair(a, b, d, state, operator,
+                                           vec_nnz, dtype, mesh=mesh)
+                q, r = torch.linalg.qr(sa)
+                y0 = q.T @ sb               # R x_sketched, in y variables
+            else:
+                # a cold start needs only R: no sketch of b, no Q
+                sa, _, nxt = _sketch_pair(a, None, d, state, operator,
+                                          vec_nnz, dtype, mesh=mesh)
+                r = torch.linalg.qr(sa, mode="r")[1]
+                y0 = None
+        solve_r, solve_rt = _solvers(r)
+        rows = _Rows(a, b, mesh)
+        bb = rows.b if b.dim() > 1 else rows.b[:, None]
+        y, iters, _ = _cgls(lambda v: rows.apply(solve_r(v)),
+                            lambda rr: solve_rt(rows.apply_t(rr)),
+                            bb.to(sa.dtype), n, x0=y0, tol=tol,
+                            maxiter=maxiter, sumsq=rows.sumsq)
+        x = solve_r(y)
     return (x[:, 0] if b.dim() == 1 else x), iters, nxt
 
 
