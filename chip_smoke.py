@@ -221,8 +221,9 @@ its plain version), in a subprocess, prints its pass, fail and skip counts
 and its seconds, and fails the run if a test failed, erred or skipped.
 
 For K1 and K2 it also prints the launch plan
-of the main path and of (b) (tiles, thread-block cluster, grid, contraction
-splits, how many times the operator is generated, and the card's
+of the main path and of (b) (tiles, the panel step, thread-block cluster,
+grid, contraction splits and the panel steps of one, how many times the
+operator is generated, and the card's
 cudaOccupancyMaxActiveClusters), K4's plan at (e), whether ``cuobjdump
 -sass`` shows HGMMA (wgmma) in every K1, K2 and K4 instantiation, their
 cases at the edges of the cluster and the tiles in float32 and bf16 (each
@@ -4042,10 +4043,11 @@ def main():
                                    ("(b) and (a)'s backward, K2", (M, D, N))):
         plan = fs.launch_plan(d_p, m_p, n_p, 0, active)
         print(f"plan {label} {d_p}x{m_p}@{m_p}x{n_p}: TI {plan.ti}, TN "
-              f"{plan.tn}, TK {plan.tk}, cluster {plan.cluster}, grid "
-              f"{plan.grid + (plan.splits,)} ({plan.splits} splits of "
-              f"{plan.split_steps} steps), regeneration factor {plan.regen}; "
-              f"cudaOccupancyMaxActiveClusters {active}")
+              f"{plan.tn}, TK {plan.tk}, PK {plan.pk}, cluster "
+              f"{plan.cluster}, grid {plan.grid + (plan.splits,)} "
+              f"({plan.splits} splits of {plan.split_steps} steps, "
+              f"{plan.panel_steps} panel steps), regeneration factor "
+              f"{plan.regen}; cudaOccupancyMaxActiveClusters {active}")
         check(plan.regen <= 2, f"{label}: S generated {plan.regen} times")
 
     def staged_fill():
@@ -4260,6 +4262,10 @@ def main():
         ("n < TN (n=100)", A[:2000, :100], dict(rows_s=256)),
         ("d < TI (d=50)", A[:4096, :512], dict(rows_s=50)),
         ("m < TK (m=40)", A[:40, :300], dict(rows_s=200)),
+        (f"m < PK (m={fs.PK - 32})", A[:fs.PK - 32, :300],
+         dict(rows_s=200)),
+        (f"m = 7 TK = {7 * fs.TK} (the last panel step half used)",
+         A[:7 * fs.TK, :300], dict(rows_s=200)),
         (f"all-phantom CTAs (n = 5 TN = {5 * fs.TN}: 5 column tiles in a "
          "cluster of 8)", A[:1000, :5 * fs.TN], dict(rows_s=130)),
     ]

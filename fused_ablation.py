@@ -11,7 +11,10 @@ part of the kernels' work switched off (the other sources unchanged, all in
 ``randblas_tpu_torch/_build/ablation/``), then times K1 at the main path's
 shape (1024 x 65536 @ 65536 x 4096, float32) and K2 at the backward pass's
 (65536 x 1024 @ 1024 x 4096) through each build, with the launch plan the
-card gets: median of 5 by CUDA events after one warm-up. The variants:
+card gets: device time a launch, by CUDA events around 20 launches queued
+while the card sleeps, the median of 5 windows after a warm-up (one call's
+time would hold the wrapper's host work, and varies by tenths of a
+millisecond from run to run). The variants:
 
 - ``full``: the kernels as they are;
 - ``no_generation``: the producers store zeros instead of generating S;
@@ -19,12 +22,16 @@ card gets: median of 5 by CUDA events after one warm-up. The variants:
   arrives by TMA);
 - ``no_products``: the consumers issue no wgmma;
 - ``barriers_and_tma``: none of the three, only the loads of A, the panel's
-  bulk copies and the barriers;
+  bulk copies and the barriers of both rings;
 - ``barriers_only``: not even the loads of A: the panel's bulk copies and
-  the barriers of the ring;
-- ``barriers_only_4_stages``: the same on a ring of four stages (which fits
-  in shared memory only without A's staging tiles): whether the ring's
-  depth or the work of each step sets the barriers' time.
+  the barriers of the rings (the ring alone);
+- ``barriers_only_4_stages``: the same on a panel ring of four stages
+  (which fits in shared memory only without A's staging slots): whether
+  the ring's depth or the work of each step sets the barriers' time;
+- ``panel_step_64`` and ``barriers_only_panel_step_64``: the full kernels
+  and the ring alone with the panel ring stepping 64 of the contraction
+  (one handoff per step of A) instead of 128: what the longer panel step
+  gives.
 
 A variant's results are wrong by construction; only its time is read. The
 time a part adds is the full time minus the variant's. Each variant is one
@@ -42,19 +49,19 @@ import sys
 import numpy as np
 import torch
 
-from kernel_variants import bind, build_variants, card_name, time_ms
+from kernel_variants import bind, build_variants, card_name, launch_ms
 
 NO_GENERATION = [
     ("if (gi < d && gc < m) {", "if (gi < d && gc < 0) {"),
     ("if (gc < m && rr + 3 >= 0 && rr < d) {", "if (gc < 0) {"),
 ]
 NO_CONVERSION = [
-    ("        for (int it = 0; it < kFours / 128; ++it) {\n"
-     "          const int t = wg * kFours + lt + it * 128;\n"
-     "          const int k = t / (TN / 4)",
-     "        for (int it = 0; it < 0; ++it) {\n"
-     "          const int t = wg * kFours + lt + it * 128;\n"
-     "          const int k = t / (TN / 4)"),
+    ("          for (int it = 0; it < kFours / 128; ++it) {\n"
+     "            const int t = lt + it * 128;\n"
+     "            const int k = t / (TN / 4)",
+     "          for (int it = 0; it < 0; ++it) {\n"
+     "            const int t = lt + it * 128;\n"
+     "            const int k = t / (TN / 4)"),
 ]
 NO_PRODUCTS = [
     ("          wgmma_m64n256k16<1>(acc, da + 2 * kk, db + 128 * kk);", ""),
@@ -66,18 +73,26 @@ NO_LOADS = [  # A taken as unloadable by TMA, and its element loads skipped
     ("        for (int it = 0; it < kEights / 128; ++it) {",
      "        for (int it = 0; it < 0; ++it) {"),
 ]
+PANEL_STEP_64 = [  # the plan's words still say 128, which the check takes
+    ("constexpr int PK = 2 * TK;", "constexpr int PK = TK;"),
+    ("p.pk == PK", "p.pk == 2 * PK"),
+]
+RING_ALONE = NO_GENERATION + NO_CONVERSION + NO_PRODUCTS + NO_LOADS
 VARIANTS = {
     "full": [],
     "no_generation": NO_GENERATION,
     "no_conversion": NO_CONVERSION,
     "no_products": NO_PRODUCTS,
     "barriers_and_tma": NO_GENERATION + NO_CONVERSION + NO_PRODUCTS,
-    "barriers_only": NO_GENERATION + NO_CONVERSION + NO_PRODUCTS + NO_LOADS,
+    "barriers_only": RING_ALONE,
     "barriers_only_4_stages": (
-        NO_GENERATION + NO_CONVERSION + NO_PRODUCTS + NO_LOADS
-        + [("constexpr int STAGES = 2;", "constexpr int STAGES = 4;"),
+        RING_ALONE
+        + [("constexpr int PANEL_STAGES = 2;",
+            "constexpr int PANEL_STAGES = 4;"),
            ("constexpr int STAGING_BYTES = TK * TN * 4;",
             "constexpr int STAGING_BYTES = 0;")]),
+    "panel_step_64": PANEL_STEP_64,
+    "barriers_only_panel_step_64": RING_ALONE + PANEL_STEP_64,
 }
 
 
@@ -105,8 +120,8 @@ def main():
 
     def record(name):
         times[name] = {
-            "K1_main_ms": time_ms(lambda: fs.fused_sketch(S, A)),
-            "K2_backward_ms": time_ms(
+            "K1_main_ms": launch_ms(lambda: fs.fused_sketch(S, A)),
+            "K2_backward_ms": launch_ms(
                 lambda: fs.fused_sketch_colmajor(S_t, G))}
         print(f"{name}: K1 {times[name]['K1_main_ms']:.3f} ms, K2 "
               f"{times[name]['K2_backward_ms']:.3f} ms [{card}]", flush=True)

@@ -45,7 +45,7 @@
 //   the integer and FP32 pipes. A CTA owns one TI x TN output tile and walks
 //   its range of the contraction, so a panel generated by one CTA alone
 //   would be generated again for every TN columns of the output. Here the
-//   CTAs of a thread-block cluster of C CTAs along n share each TI x TK
+//   CTAs of a thread-block cluster of C CTAs along n share each TI x PK
 //   panel: every CTA generates TI / C of its rows into its own shared
 //   memory, and one bulk copy per peer (cp.async.bulk shared::cta ->
 //   shared::cluster) places them in every other CTA of the cluster. S is
@@ -53,35 +53,49 @@
 //   TN = 256 and C = 16).
 // - Overlap. Each CTA is warp-specialised. One producer warpgroup
 //   generates the panel rows. Two consumer warpgroups run
-//   wgmma.m64n256k16 (bf16 in, f32 accumulate, 64 operator rows each) on a
-//   ring of STAGES shared-memory stages; while a step's products run on the
-//   tensor cores, each consumer warpgroup converts its half of the next
-//   step's data tile to bf16 and loads the half after that by TMA.
-//   mbarriers order the ring: a stage's full barrier completes on the
-//   producers' arrival, both consumer warpgroups' arrivals and the peers'
-//   bulk-copy bytes; its empty barrier on one arrival from each consumer
-//   warpgroup of every CTA of the cluster (a CTA overwrites its share of
-//   the panel in every peer). setmaxnreg moves registers from the
-//   producers to the consumers' 128 accumulators.
+//   wgmma.m64n256k16 (bf16 in, f32 accumulate, 64 operator rows each);
+//   while a step's products run on the tensor cores, each consumer
+//   warpgroup converts its half of the next step's data tile to bf16, and
+//   TMA then loads its half of the step after into the staging tile it has
+//   just read. setmaxnreg moves registers from the producers to the
+//   consumers' 128 accumulators.
+// - Two rings. The panel ring, which the cluster shares, steps PK = 128 of
+//   the contraction: a stage's full barrier completes on the producers'
+//   arrival and the peers' bulk-copy bytes; its empty barrier on one
+//   arrival from each consumer warpgroup of every CTA of the cluster (a
+//   CTA overwrites its share of the panel in every peer). A's ring stays
+//   in the CTA and steps TK = 64: two bf16 data tiles, each ready once both
+//   consumer warpgroups have converted their halves, and one float32
+//   staging tile. A step multiplies one half of a panel stage; consumers
+//   wait for the panel once every two steps. The ring alone (its barriers
+//   and bulk copies, no other work) takes as long at a step of 128 as at
+//   64: it is bound by the panel's bytes between SMs, not by its handoffs.
+//   But at 128 the producers' generation hides under the products, where
+//   at 64 it added a seventh of K1's time at the main shape
+//   (fused_ablation.py, PERF.md).
 // - A's bytes. A is read once per output row tile (d / TI times) and
-//   reaches shared memory as float32 (or bf16) by TMA, half a tile per
-//   consumer warpgroup. Once generation is shared, these loads and the
-//   barriers alone take three quarters of K1's time at the main shape, and
-//   generation, conversion and products each add little on top
-//   (fused_ablation.py, PERF.md): the ring has two stages, all that 227 KB
-//   of shared memory hold with a float32 staging tile.
-// - Layouts. The panel is K-major with the 128-byte swizzle that the wgmma
-//   descriptors read (TK = 64 bf16 = one 128-byte row). The data tile is
-//   MN-major for row-major A (wgmma's transpose bit, so converting it is
-//   element-wise) and K-major for column-major A (the right route's A^T,
-//   read in place through its strides). A whose strides TMA cannot take is
-//   loaded element by element.
+//   reaches shared memory as float32 (or bf16) by TMA, from L2 for all but
+//   the first row tile to read it. The loads are bound by L2's bandwidth:
+//   more staging in flight, or the same in smaller boxes, made K1 slower
+//   on the card (PERF.md). One staging tile, in two boxes of half a tile,
+//   refilled a step ahead, was the fastest measured, and it fits beside a
+//   panel ring of 2 x 128.
+// - Layouts. A panel stage is K-major with the 128-byte swizzle that the
+//   wgmma descriptors read: a row of PK bf16 is two 128-byte rows, one in
+//   each 1024-byte atom of a pair (k 0-63, k 64-127) per eight rows, so a
+//   CTA's share of rows (a multiple of eight) is one contiguous run for its
+//   bulk copy, and a step's half is every other atom (a stride of 2048
+//   bytes between atoms). The data tile is MN-major for row-major A
+//   (wgmma's transpose bit, so converting it is element-wise) and K-major
+//   for column-major A (the right route's A^T, read in place through its
+//   strides). A whose strides TMA cannot take is loaded element by
+//   element.
 // - Rounds. Clusters of 8 or 16 fill only 120 or 112 of the 132 SMs, and a
 //   grid of a few rounds of clusters leaves the card part idle in the last
-//   one. The launch plan (ops/fused_sketch.py::launch_plan: TI, TN, TK, C,
-//   the grid, the splits) then cuts the contraction into ranges on grid.z;
-//   fused_sketch_reduce_kernel adds their partial sums in split order. The
-//   launcher only checks the plan.
+//   one. The launch plan (ops/fused_sketch.py::launch_plan: TI, TN, TK, PK,
+//   C, the grid, the splits) then cuts the contraction into ranges on
+//   grid.z, each starting on a panel step; fused_sketch_reduce_kernel adds
+//   their partial sums in split order. The launcher only checks the plan.
 // - A CTA whose columns lie past n still generates its share and joins
 //   every barrier: the cluster would deadlock otherwise.
 // Sums are deterministic: no atomics, a fixed k order inside each CTA and a
@@ -267,8 +281,11 @@ __device__ __forceinline__ void gen4(const Seed& seed, uint64_t off,
 
 constexpr int TI = 128;         // operator rows (output rows) per CTA
 constexpr int TN = 256;         // output columns per CTA
-constexpr int TK = 64;          // contraction step: one 128-byte bf16 row
-constexpr int STAGES = 2;       // ring of shared-memory stages
+constexpr int TK = 64;          // A's step: one 128-byte bf16 row
+constexpr int PK = 2 * TK;      // the panel's step: one cluster handoff
+constexpr int KSTEPS = PK / TK; // A's steps per panel step
+constexpr int PANEL_STAGES = 2; // the cluster's ring of operator panels
+constexpr int TILES = 2;        // bf16 data tiles
 constexpr int CONSUMERS = 256;  // warpgroups 0, 1: wgmma, 64 rows each
 constexpr int PRODUCERS = 128;  // warpgroup 2: the operator panel
 constexpr int THREADS = CONSUMERS + PRODUCERS;
@@ -276,15 +293,19 @@ constexpr int THREADS = CONSUMERS + PRODUCERS;
 constexpr int CONSUMER_REGS = 216;
 constexpr int PRODUCER_REGS = 72;
 constexpr int MAX_CLUSTER = 16;
-constexpr int ROW_BYTES = TK * 2;                  // 128
-constexpr int PANEL_BYTES = TI * ROW_BYTES;        // 16 KB
-constexpr int TILE_BYTES = TN * ROW_BYTES;         // 32 KB
-constexpr int STAGING_BYTES = TK * TN * 4;     // A's tile as TMA lands it
-constexpr int STAGE_BYTES = PANEL_BYTES + TILE_BYTES + STAGING_BYTES;
-// 1024 bytes of slack to align the swizzle atoms, the stages, then the
-// full, empty and two staged barriers: 230,464 of the 232,448 bytes a CTA
+constexpr int ROW_BYTES = TK * 2;                   // 128
+constexpr int ATOM_BYTES = 8 * ROW_BYTES;           // a swizzle atom
+constexpr int PANEL_BYTES = TI * PK * 2;            // 32 KB
+constexpr int TILE_BYTES = TN * ROW_BYTES;          // 32 KB
+constexpr int STAGING_BYTES = TK * TN * 4;   // A's tile as TMA lands it
+// full, empty per panel stage; ready per tile; staged per consumer
+// warpgroup
+constexpr int BARRIERS = 2 * PANEL_STAGES + TILES + 2;
+// 1024 bytes of slack to align the swizzle atoms, the panels, the tiles,
+// the staging tile, then the barriers: 197,696 of the 232,448 bytes a CTA
 // may have
-constexpr int SMEM_BYTES = 1024 + STAGES * STAGE_BYTES + 4 * STAGES * 8;
+constexpr int SMEM_BYTES = 1024 + PANEL_STAGES * PANEL_BYTES +
+                           TILES * TILE_BYTES + STAGING_BYTES + 8 * BARRIERS;
 // how the consumers read A: with plain loads, or from the staging tile
 // that TMA fills, laid out [k][n] (A row-major) or [n][k] (column-major)
 constexpr int kLoadDirect = 0;
@@ -307,6 +328,14 @@ __device__ __forceinline__ __nv_bfloat16 to_bf16(__nv_bfloat16 x) { return x; }
 // 1024-byte atom of eight rows), the layout wgmma's descriptors read
 __device__ __forceinline__ uint32_t swz(int row, int chunk) {
   return (uint32_t)row * ROW_BYTES + ((uint32_t)(chunk ^ (row & 7)) << 4);
+}
+
+// byte offset of 16-byte chunk `chunk` (0 to 8 KSTEPS - 1) of row `row` in
+// a panel stage: chunks 0-7 in the first atom of the row's KSTEPS atoms,
+// 8-15 in the second
+__device__ __forceinline__ uint32_t panel_off(int row, int chunk) {
+  return (uint32_t)(row >> 3) * (KSTEPS * ATOM_BYTES) +
+         (uint32_t)(chunk >> 3) * ATOM_BYTES + swz(row & 7, chunk & 7);
 }
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -482,7 +511,8 @@ __device__ __forceinline__ void wgmma_m64n256k16(float (&d)[128], uint64_t da,
 // rows above output row 0: output row r is tile row r + shift (K1: 0).
 // A's element (k, j) is a[k * sk + j * sn]; `amode` says whether the
 // consumers load it directly or from what TMA (`map`) staged. The
-// contraction splits into gridDim.z ranges of `ks` steps.
+// contraction splits into gridDim.z ranges of `ks` steps of TK (a multiple
+// of KSTEPS where there are several: each range starts on a panel step).
 template <typename TA, int RNG, bool GAUSS, bool COLMAJOR>
 __device__ __forceinline__ void sketch_tile(const TA* __restrict__ a,
                                             int64_t sk, int64_t sn,
@@ -496,14 +526,19 @@ __device__ __forceinline__ void sketch_tile(const TA* __restrict__ a,
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t base = (raw + 1023u) & ~1023u;  // swizzle atoms: 1024 B
   uint8_t* smem = smem_raw + (base - raw);
-  const uint32_t bars = base + STAGES * STAGE_BYTES;
-  // per stage: full (the panel and the data tile are in place), empty
-  // (every consumer warpgroup of the cluster is done with the panel), and
-  // per consumer warpgroup staged (TMA has landed its half of A's tile)
-  auto full = [&](int s) { return bars + 8u * s; };
-  auto empty = [&](int s) { return bars + 8u * (STAGES + s); };
-  auto staged = [&](int s, int w) {
-    return bars + 8u * (2 * STAGES + 2 * s + w);
+  uint8_t* tiles = smem + PANEL_STAGES * PANEL_BYTES;
+  uint8_t* staging = tiles + TILES * TILE_BYTES;
+  const uint32_t bars = base + PANEL_STAGES * PANEL_BYTES +
+                        TILES * TILE_BYTES + STAGING_BYTES;
+  // per panel stage: full (the panel is in place) and empty (every
+  // consumer warpgroup of the cluster is done with it); per data tile:
+  // ready (both consumer warpgroups converted their halves); per consumer
+  // warpgroup: staged (TMA has landed its half of A's tile)
+  auto full = [&](int p) { return bars + 8u * p; };
+  auto empty = [&](int p) { return bars + 8u * (PANEL_STAGES + p); };
+  auto ready = [&](int t) { return bars + 8u * (2 * PANEL_STAGES + t); };
+  auto staged = [&](int w) {
+    return bars + 8u * (2 * PANEL_STAGES + TILES + w);
   };
 
   const int tid = threadIdx.x;
@@ -511,20 +546,22 @@ __device__ __forceinline__ void sketch_tile(const TA* __restrict__ a,
   const int role = __shfl_sync(0xffffffffu, tid / 128, 0);
   const uint32_t csize = cluster_size(), crank = cluster_rank();
   if (tid == 0) {
-    for (int s = 0; s < STAGES; ++s) {
-      mbar_init(full(s), 3);           // the producers (+ tx), 2 warpgroups
-      mbar_init(empty(s), 2 * csize);  // each consumer warpgroup of each CTA
-      mbar_init(staged(s, 0), 1);      // the TMA loads of A's tile halves
-      mbar_init(staged(s, 1), 1);
+    for (int p = 0; p < PANEL_STAGES; ++p) {
+      mbar_init(full(p), 1);           // the producers (+ the peers' bytes)
+      mbar_init(empty(p), 2 * csize);  // each consumer warpgroup of each CTA
     }
+    for (int t = 0; t < TILES; ++t) mbar_init(ready(t), 2);
+    mbar_init(staged(0), 1);           // the TMA loads of A's tile halves
+    mbar_init(staged(1), 1);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   cluster_sync();  // every barrier of the cluster is set before any use
 
   const int64_t i0 = (int64_t)blockIdx.y * TI;  // first tile row (shifted)
   const int64_t n0 = (int64_t)blockIdx.x * TN;
-  // split blockIdx.z of the contraction: steps s0 .. s0 + nk, its partial
-  // sums into slice z of `out` (one slice when the grid has one split)
+  // split blockIdx.z of the contraction: steps s0 .. s0 + nk of TK, its
+  // partial sums into slice z of `out` (one slice when the grid has one
+  // split); its panel steps cover them KSTEPS at a time
   const int64_t s0 = (int64_t)blockIdx.z * ks;
   const int64_t nk_all = (m + TK - 1) / TK;
   const int64_t nk = s0 < nk_all ? (nk_all - s0 < ks ? nk_all - s0 : ks) : 0;
@@ -538,35 +575,56 @@ __device__ __forceinline__ void sketch_tile(const TA* __restrict__ a,
                  :: "n"(CONSUMER_REGS));
     const int wg = role;  // tile rows 64 * wg ..
     const int lt = tid & 127;
+    // this warpgroup's half of A's tile in the staging tile: k rows of the
+    // row-major staging, n columns of the column-major one
+    const TA* a_half =
+        reinterpret_cast<const TA*>(staging) + wg * (TK * TN / 2);
+    // TMA of this warpgroup's half of A's tile of `step`
+    auto load_half = [&](int64_t step) {
+      constexpr uint32_t kBytes = TK * TN * sizeof(TA) / 2;
+      mbar_arrive_expect(staged(wg), kBytes);
+      const int k0 = (int)((s0 + step) * TK);
+      if (amode == kTmaRows) {
+        tma_load(smem_u32(a_half), map, (int)n0, k0 + wg * (TK / 2),
+                 staged(wg));
+      } else {
+        tma_load(smem_u32(a_half), map, k0, (int)n0 + wg * (TN / 2),
+                 staged(wg));
+      }
+    };
     // this warpgroup's half of the data tile of `step`, as bf16 and zero
     // past the ragged edges (TMA fills them with zeros): from the staging
-    // tile four values at a time, or element by element from A
+    // tile four values at a time, which TMA refills with the next step's
+    // half as soon as the warpgroup has read it; or element by element
+    // from A
     auto convert = [&](int64_t step) {
-      const int s = (int)(step % STAGES);
-      uint8_t* tile = smem + s * STAGE_BYTES + PANEL_BYTES;
-      const TA* staging = reinterpret_cast<const TA*>(tile + TILE_BYTES);
-      constexpr int kFours = TK * TN / 4 / 2;  // four-value tasks per half
+      uint8_t* tile = tiles + (int)(step % TILES) * TILE_BYTES;
       if (amode != kLoadDirect) {
-        mbar_wait(staged(s, wg), (uint32_t)(step / STAGES) & 1u);
-      }
-      if (amode == kTmaRows) {
-        // staging [k][n] -> MN-major tile: four adjacent columns of a row
+        constexpr int kFours = TK * TN / 4 / 2;  // four-value tasks a half
+        mbar_wait(staged(wg), (uint32_t)step & 1u);
+        if (amode == kTmaRows) {
+          // staging [k][n] -> MN-major tile: four adjacent columns of a row
 #pragma unroll 4
-        for (int it = 0; it < kFours / 128; ++it) {
-          const int t = wg * kFours + lt + it * 128;
-          const int k = t / (TN / 4), j = 4 * (t % (TN / 4));
-          *reinterpret_cast<uint2*>(tile + mn_off(k, j)) =
-              four_bf16(staging + k * TN + j);
-        }
-      } else if (amode == kTmaCols) {
-        // staging [n][k] -> K-major tile: four adjacent k of a column
+          for (int it = 0; it < kFours / 128; ++it) {
+            const int t = lt + it * 128;
+            const int k = t / (TN / 4), j = 4 * (t % (TN / 4));
+            *reinterpret_cast<uint2*>(tile + mn_off(wg * (TK / 2) + k, j)) =
+                four_bf16(a_half + k * TN + j);
+          }
+        } else {
+          // staging [n][k] -> K-major tile: four adjacent k of a column
 #pragma unroll 4
-        for (int it = 0; it < kFours / 128; ++it) {
-          const int t = wg * kFours + lt + it * 128;
-          const int j = t / (TK / 4), k = 4 * (t % (TK / 4));
-          *reinterpret_cast<uint2*>(tile + swz(j, k >> 3) + (k & 7) * 2) =
-              four_bf16(staging + j * TK + k);
+          for (int it = 0; it < kFours / 128; ++it) {
+            const int t = lt + it * 128;
+            const int j = t / (TK / 4), k = 4 * (t % (TK / 4));
+            *reinterpret_cast<uint2*>(tile + swz(wg * (TN / 2) + j, k >> 3) +
+                                      (k & 7) * 2) =
+                four_bf16(a_half + j * TK + k);
+          }
         }
+        asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+        asm volatile("bar.sync %0, 128;\n" :: "r"(2 + wg) : "memory");
+        if (lt == 0 && step + 1 < nk) load_half(step + 1);
       } else {
         // K-major tile row j: column n0 + j of A at k0 + 8 ch ..
         constexpr int kEights = TN * (TK / 8) / 2;
@@ -586,86 +644,66 @@ __device__ __forceinline__ void sketch_tile(const TA* __restrict__ a,
               make_uint4(pack_bf16(w[0], w[1]), pack_bf16(w[2], w[3]),
                          pack_bf16(w[4], w[5]), pack_bf16(w[6], w[7]));
         }
-      }
-      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-    };
-    // TMA of this warpgroup's half of A's tile of `step` (rows k of the
-    // row-major staging tile, columns n of the column-major one)
-    auto load_half = [&](int64_t step) {
-      const int s = (int)(step % STAGES);
-      constexpr uint32_t kBytes = TK * TN * sizeof(TA) / 2;
-      const uint32_t dst =
-          smem_u32(smem + s * STAGE_BYTES + PANEL_BYTES + TILE_BYTES) +
-          wg * kBytes;
-      mbar_arrive_expect(staged(s, wg), kBytes);
-      const int k0 = (int)((s0 + step) * TK);
-      if (amode == kTmaRows) {
-        tma_load(dst, map, (int)n0, k0 + wg * (TK / 2), staged(s, wg));
-      } else {
-        tma_load(dst, map, k0, (int)n0 + wg * (TN / 2), staged(s, wg));
+        asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
       }
     };
-    // the warpgroup's half of step's tile is in place: arrive on full, and
-    // load the half tile of step + STAGES into the staging tile it read.
+    // the warpgroup's half of step's tile is in place: arrive on ready.
     // Called only once the warpgroup's products of the step before are
-    // done, which frees the tile's stage
+    // done, which frees the tile
     auto converted = [&](int64_t step) {
-      const int s = (int)(step % STAGES);
       asm volatile("bar.sync %0, 128;\n" :: "r"(2 + wg) : "memory");
-      if (lt == 0) {
-        mbar_arrive(full(s));
-        if (amode != kLoadDirect && step + STAGES < nk) {
-          load_half(step + STAGES);
-        }
-      }
+      if (lt == 0) mbar_arrive(ready((int)(step % TILES)));
     };
     float acc[128];
 #pragma unroll
     for (int i = 0; i < 128; ++i) acc[i] = 0.0f;
-    if (amode != kLoadDirect && lt == 0) {
-      for (int64_t step = 0; step < nk && step < STAGES; ++step) {
-        load_half(step);
-      }
-    }
+    if (amode != kLoadDirect && lt == 0 && nk > 0) load_half(0);
     if (nk > 0) {
       convert(0);
       converted(0);
     }
     for (int64_t step = 0; step < nk; ++step) {
-      const int s = (int)(step % STAGES);
-      mbar_wait(full(s), (uint32_t)(step / STAGES) & 1u);
-      const uint32_t panel = base + s * STAGE_BYTES;
+      const int64_t p = step / KSTEPS;  // the panel step
+      // and the atom of its rows that this step multiplies
+      const int ps = (int)(p % PANEL_STAGES), atom = (int)(step % KSTEPS);
+      if (atom == 0) mbar_wait(full(ps), (uint32_t)(p / PANEL_STAGES) & 1u);
+      mbar_wait(ready((int)(step % TILES)), (uint32_t)(step / TILES) & 1u);
+      const uint32_t panel = base + ps * PANEL_BYTES + atom * ATOM_BYTES;
+      const uint32_t tile = base + PANEL_STAGES * PANEL_BYTES +
+                            (int)(step % TILES) * TILE_BYTES;
       // k16 slice kk: 32 bytes along a K-major row, 16 rows of an
-      // MN-major tile (descriptor units of 16 bytes)
-      const uint64_t da =
-          desc_sw128(panel + wg * 64 * ROW_BYTES, 16, 8 * ROW_BYTES);
+      // MN-major tile (descriptor units of 16 bytes); the warpgroup's 64
+      // panel rows are eight such atoms, KSTEPS atoms apart
+      const uint64_t da = desc_sw128(panel + wg * 8 * (KSTEPS * ATOM_BYTES),
+                                     16, KSTEPS * ATOM_BYTES);
       pin(acc);
       asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
       if (mn_tile) {
-        const uint64_t db = desc_sw128(panel + PANEL_BYTES, TK * ROW_BYTES,
-                                       8 * ROW_BYTES);
+        const uint64_t db = desc_sw128(tile, TK * ROW_BYTES, 8 * ROW_BYTES);
 #pragma unroll
         for (int kk = 0; kk < TK / 16; ++kk) {
           wgmma_m64n256k16<1>(acc, da + 2 * kk, db + 128 * kk);
         }
       } else {
-        const uint64_t db =
-            desc_sw128(panel + PANEL_BYTES, 16, 8 * ROW_BYTES);
+        const uint64_t db = desc_sw128(tile, 16, 8 * ROW_BYTES);
 #pragma unroll
         for (int kk = 0; kk < TK / 16; ++kk) {
           wgmma_m64n256k16<0>(acc, da + 2 * kk, db + 2 * kk);
         }
       }
       asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-      // under the products: the next step's half tile (its stage was last
-      // read by both warpgroups' products of the step before, done: full(s)
+      // under the products: the next step's half tile (its tile was last
+      // read by both warpgroups' products of the step before, done: ready
       // counted their arrivals)
       if (step + 1 < nk) convert(step + 1);
       asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
       pin(acc);
-      // release the panel in every CTA of the cluster at once (thread r
-      // of the warpgroup signals rank r)
-      if (lt < (int)csize) mbar_arrive_cluster(peer(empty(s), lt));
+      // after the panel's last part (or the split's last step), release
+      // it in every CTA of the cluster at once (thread r of the warpgroup
+      // signals rank r)
+      if ((atom == KSTEPS - 1 || step + 1 == nk) && lt < (int)csize) {
+        mbar_arrive_cluster(peer(empty(ps), lt));
+      }
       if (step + 1 < nk) converted(step + 1);
     }
 
@@ -701,17 +739,19 @@ __device__ __forceinline__ void sketch_tile(const TA* __restrict__ a,
     const int pt = tid - CONSUMERS;
     const int share = TI / (int)csize;   // panel rows this CTA generates
     const int r0 = (int)crank * share;
-    for (int64_t step = 0; step < nk; ++step) {
-      const int s = (int)(step % STAGES);
-      const int64_t k0 = (s0 + step) * TK;
-      mbar_wait(empty(s), ((uint32_t)(step / STAGES) & 1u) ^ 1u);
-      uint8_t* panel = smem + s * STAGE_BYTES;
+    // panel steps: the last may be part used (its phantom columns zero)
+    const int64_t np = (nk + KSTEPS - 1) / KSTEPS;
+    for (int64_t p = 0; p < np; ++p) {
+      const int ps = (int)(p % PANEL_STAGES);
+      const int64_t k0 = (s0 + KSTEPS * p) * TK;
+      mbar_wait(empty(ps), ((uint32_t)(p / PANEL_STAGES) & 1u) ^ 1u);
+      uint8_t* panel = smem + ps * PANEL_BYTES;
       // 1. this CTA's rows r0 .. r0 + share of the operator panel
       if constexpr (!COLMAJOR) {
         // a counter block is four adjacent columns of one row
 #pragma unroll 2
-        for (int t = pt; t < share * (TK / 4); t += PRODUCERS) {
-          const int i = r0 + t / (TK / 4), b = t % (TK / 4);
+        for (int t = pt; t < share * (PK / 4); t += PRODUCERS) {
+          const int i = r0 + t / (PK / 4), b = t % (PK / 4);
           const int64_t gi = i0 + i, gc = k0 + 4 * b;
           float v[4] = {0.0f, 0.0f, 0.0f, 0.0f};
           if (gi < d && gc < m) {
@@ -722,7 +762,8 @@ __device__ __forceinline__ void sketch_tile(const TA* __restrict__ a,
           for (int l = 0; l < 4; ++l) {
             if (gc + l >= m) v[l] = 0.0f;  // phantom columns multiply nothing
           }
-          *reinterpret_cast<uint2*>(panel + swz(i, b >> 1) + (b & 1) * 8) =
+          *reinterpret_cast<uint2*>(panel + panel_off(i, b >> 1) +
+                                    (b & 1) * 8) =
               make_uint2(pack_bf16(to_bf16(v[0]), to_bf16(v[1])),
                          pack_bf16(to_bf16(v[2]), to_bf16(v[3])));
         }
@@ -730,8 +771,8 @@ __device__ __forceinline__ void sketch_tile(const TA* __restrict__ a,
         // a counter block is four adjacent rows of one column; lanes walk
         // the columns
 #pragma unroll 2
-        for (int t = pt; t < (share / 4) * TK; t += PRODUCERS) {
-          const int b = r0 / 4 + t / TK, c = t % TK;
+        for (int t = pt; t < (share / 4) * PK; t += PRODUCERS) {
+          const int b = r0 / 4 + t / PK, c = t % PK;
           const int64_t gc = k0 + c;
           const int64_t rr = i0 + 4 * b - shift;  // output row of lane 0
           float v[4] = {0.0f, 0.0f, 0.0f, 0.0f};
@@ -744,20 +785,21 @@ __device__ __forceinline__ void sketch_tile(const TA* __restrict__ a,
           for (int l = 0; l < 4; ++l) {
             const int row = 4 * b + l;
             const float x = (rr + l < 0 || rr + l >= d) ? 0.0f : v[l];
-            *reinterpret_cast<__nv_bfloat16*>(panel + swz(row, c >> 3) +
+            *reinterpret_cast<__nv_bfloat16*>(panel + panel_off(row, c >> 3) +
                                               (c & 7) * 2) = to_bf16(x);
           }
         }
       }
       // 2. make the stores visible to wgmma and the bulk copies, then send
-      //    this CTA's panel rows to every peer (thread r copies to rank r)
+      //    this CTA's panel rows, one contiguous run, to every peer (thread
+      //    r copies to rank r)
       asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
       asm volatile("bar.sync 1, %0;\n" :: "n"(PRODUCERS) : "memory");
-      const uint32_t bytes = (uint32_t)share * ROW_BYTES;
-      const uint32_t src = smem_u32(panel) + (uint32_t)r0 * ROW_BYTES;
-      if (pt == 0) mbar_arrive_expect(full(s), (csize - 1) * bytes);
+      const uint32_t bytes = (uint32_t)share * (PK * 2);
+      const uint32_t src = smem_u32(panel) + (uint32_t)r0 * (PK * 2);
+      if (pt == 0) mbar_arrive_expect(full(ps), (csize - 1) * bytes);
       if (pt < (int)csize && pt != (int)crank) {
-        bulk_to_peer(peer(src, pt), src, bytes, peer(full(s), pt));
+        bulk_to_peer(peer(src, pt), src, bytes, peer(full(ps), pt));
       }
     }
     cluster_sync();
@@ -1020,21 +1062,24 @@ Seed make_seed(const uint32_t* words) {
 }
 
 // The launch plan of K1 and K2, computed by ops/fused_sketch.py::launch_plan
-// and checked here: the compiled tile sizes, a cluster of 1, 2, 4, 8 or 16
-// CTAs along n that divides grid.x, a grid that covers the output, and the
-// contraction split into `splits` ranges of `ks` steps on grid.z.
+// and checked here: the compiled tile sizes and panel step, a cluster of 1,
+// 2, 4, 8 or 16 CTAs along n that divides grid.x, a grid that covers the
+// output, and the contraction split into `splits` ranges of `ks` steps of
+// TK on grid.z, each range a whole number of panel steps where there are
+// several.
 struct Plan {
-  int ti, tn, tk, cluster;
+  int ti, tn, tk, pk, cluster;
   unsigned gx, gy;
   int splits, ks;
 };
 
 bool plan_ok(const Plan& p, int64_t rows, int64_t m, int64_t n) {
   const int c = p.cluster;
-  return p.ti == TI && p.tn == TN && p.tk == TK && c >= 1 &&
+  return p.ti == TI && p.tn == TN && p.tk == TK && p.pk == PK && c >= 1 &&
          c <= MAX_CLUSTER && (c & (c - 1)) == 0 && p.gx % c == 0 &&
          (int64_t)p.gx * TN >= n && (int64_t)p.gy * TI >= rows &&
          p.gy <= 65535 && p.splits >= 1 && p.splits <= 65535 && p.ks >= 1 &&
+         (p.splits == 1 || p.ks % KSTEPS == 0) &&
          (int64_t)p.splits * p.ks * TK >= m;
 }
 
@@ -1251,8 +1296,8 @@ cudaError_t fill_dispatch(float* out, int64_t rows, int64_t cols, int shift,
 }
 
 Plan make_plan(const int32_t* v) {
-  return Plan{v[0], v[1], v[2], v[3], (unsigned)v[4], (unsigned)v[5],
-              v[6], v[7]};
+  return Plan{v[0], v[1], v[2], v[3], v[4], (unsigned)v[5], (unsigned)v[6],
+              v[7], v[8]};
 }
 
 // K1 and K2 share this dispatch: the data type and the generator select
@@ -1292,11 +1337,11 @@ int fused_entry(const void* a, int a_bf16, int64_t sk, int64_t sn,
 
 // Plain C interface, bound with ctypes (ops/_build.py). seed_words holds the
 // four counter words, then four key words (zero-padded); plan holds TI, TN,
-// TK, the cluster size, grid.x, grid.y, the splits of the contraction and
-// the steps per split of ops/fused_sketch.py's launch_plan; ws holds
-// splits x d x n floats when splits > 1 (else it may be null). A's element
-// (k, j) is at a[k * sk + j * sn]. Each launcher only enqueues on `stream`
-// and returns the launch's error code.
+// TK, PK, the cluster size, grid.x, grid.y, the splits of the contraction
+// and the steps of TK per split of ops/fused_sketch.py's launch_plan; ws
+// holds splits x d x n floats when splits > 1 (else it may be null). A's
+// element (k, j) is at a[k * sk + j * sn]. Each launcher only enqueues on
+// `stream` and returns the launch's error code.
 
 extern "C" int rbt_fused_sketch(const void* a, int a_bf16, int64_t sk,
                                 int64_t sn, float* ws, float* out, int64_t d,
@@ -1329,7 +1374,7 @@ extern "C" int rbt_fused_max_clusters(int cluster, int* count) {
   auto kernel = fused_sketch_kernel<float, kPhilox4x32, true>;
   cudaError_t e = prepare(kernel, cluster);
   if (e != cudaSuccess) return (int)e;
-  const Plan p{TI, TN, TK, cluster, (unsigned)cluster, 1, 1, 1};
+  const Plan p{TI, TN, TK, PK, cluster, (unsigned)cluster, 1, 1, 1};
   cudaLaunchAttribute attr;
   const cudaLaunchConfig_t cfg = cluster_config(p, nullptr, &attr);
   return (int)cudaOccupancyMaxActiveClusters(count, (void*)kernel, &cfg);

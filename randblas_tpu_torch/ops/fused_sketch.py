@@ -26,7 +26,8 @@ the plan of ``launch_plan`` (tiles, thread-block cluster, grid, contraction
 splits), which asks the card through ``max_active_clusters`` how many
 clusters it runs at once; they read A through its strides. A launch is
 recorded as the span ``K1.launch`` or ``K2.launch`` (plan, allocations,
-the launcher's call) with the plan's ``cluster`` and ``splits``.
+the launcher's call) with the plan's ``cluster``, ``splits`` and
+``panel_steps``.
 
 K1 and K2 are differentiable in A (one ``torch.autograd.Function``, as the
 JAX package's ``jax.custom_vjp``): the sketch is linear in A, so
@@ -65,9 +66,12 @@ _RNG_CODES = {"philox4x32": 0, "threefry4x32": 1}
 SUPPORTED_RNGS = tuple(_RNG_CODES)
 _CTR = 4  # counter words of the supported generators
 
-# K1's and K2's tiles (the constants TI, TN, TK of csrc/fused_sketch.cu):
-# operator rows, output columns and contraction depth per CTA and step
+# K1's and K2's tiles (the constants TI, TN, TK, PK of csrc/fused_sketch.cu):
+# operator rows, output columns and contraction depth per CTA and step of
+# A, and the contraction depth of a step of the operator panel, which the
+# cluster hands off once per step
 TI, TN, TK = 128, 256, 64
+PK = 2 * TK
 _PORTABLE_CLUSTER = 8   # the largest cluster every sm_90 device launches
 _MAX_CLUSTER = 16       # with the non-portable cluster attribute
 _MAX_GRID_Y_ROWS = 65535 * TI  # K1's and K2's row tiles ride grid.y
@@ -83,23 +87,31 @@ _GEN_SHARE = 0.5
 class LaunchPlan(NamedTuple):
     """How K1 and K2 cover a (rows, n) output: TI x TN tiles on a grid of
     (grid_x, grid_y, splits) CTAs, in clusters of ``cluster`` CTAs along n
-    that share each operator panel, the contraction cut into ``splits``
-    ranges of ``split_steps`` steps of TK (their partial sums added in
-    split order after the kernel). ``regen`` is how many times every
-    operator element is generated: once per cluster along n."""
+    that share each operator panel of ``pk`` columns, the contraction cut
+    into ``splits`` ranges of ``split_steps`` steps of TK (their partial
+    sums added in split order after the kernel), each range a whole number
+    of panel steps where there are several. ``regen`` is how many times
+    every operator element is generated: once per cluster along n."""
     ti: int
     tn: int
     tk: int
+    pk: int
     cluster: int
     grid: tuple
     regen: int
     splits: int
     split_steps: int
 
+    @property
+    def panel_steps(self) -> int:
+        """The panel-ring handoffs a CTA of the first split makes: its
+        steps of TK two by two, the last perhaps half used."""
+        return -(-self.split_steps * self.tk // self.pk)
+
     def words(self):
         """The plan as the launcher takes it."""
-        return (ctypes.c_int32 * 8)(self.ti, self.tn, self.tk, self.cluster,
-                                    *self.grid, self.splits,
+        return (ctypes.c_int32 * 9)(self.ti, self.tn, self.tk, self.pk,
+                                    self.cluster, *self.grid, self.splits,
                                     self.split_steps)
 
 
@@ -135,7 +147,7 @@ def launch_plan(d: int, m: int, n: int, shift: int = 0,
     their rounds, each CTA generating half as much, take less time than
     those of 8 (_GEN_SHARE). grid.x is a multiple of the cluster: CTAs past
     n compute zeros and join the cluster's barriers. The contraction splits
-    as ``_splits`` says."""
+    as ``_splits`` says, on panel-step boundaries."""
     tiles = -(-n // TN)
     row_tiles = -(-(d + shift) // TI)
     steps = max(1, -(-m // TK))
@@ -158,8 +170,10 @@ def launch_plan(d: int, m: int, n: int, shift: int = 0,
 
     _, cluster, grid_x, splits = min(layout(c) for c in options)
     split_steps = -(-steps // splits)
+    if splits > 1:  # every range starts on a panel step
+        split_steps = -(-split_steps // (PK // TK)) * (PK // TK)
     splits = -(-steps // split_steps)
-    return LaunchPlan(TI, TN, TK, cluster, (grid_x, row_tiles),
+    return LaunchPlan(TI, TN, TK, PK, cluster, (grid_x, row_tiles),
                       grid_x // cluster, splits, split_steps)
 
 
@@ -333,7 +347,8 @@ def _launch(colmajor, base: RNGState, A, d, shift, ctr_stride, gaussian,
     with profiling.span("K2.launch" if colmajor else "K1.launch") as span:
         lib = _build.load()
         plan = launch_plan(d, m, n, shift, max_active_clusters(A.device))
-        span.set(cluster=plan.cluster, splits=plan.splits)
+        span.set(cluster=plan.cluster, splits=plan.splits,
+                 panel_steps=plan.panel_steps)
         with torch.cuda.device(A.device):
             out = torch.empty((d, n), dtype=torch.float32, device=A.device)
             ws = (torch.empty((plan.splits, d, n), dtype=torch.float32,

@@ -18,7 +18,8 @@ wrappers run their plain versions there, and no kernel launches).
 - ``COUNTERPARTS``: every test function of ``tests/test_tpu_hardware.py``
   -> the ids of the cases that port it (30 cases for 29 functions).
 - ``BRANCHES``: the Hopper branches of K1-K7, each held against its plain
-  version, with ``branch_facts`` (load mode, launch plan, slots, order)
+  version (K1 and K2 launched twice, bit for bit the same), with
+  ``branch_facts`` (load mode, launch plan, slots, order)
   computed from the card-scale shapes and the recorded card's occupancy.
 - ``load_mode``: the rule of ``a_map`` in ``csrc/fused_sketch.cu`` and
   ``csrc/saso_sketch.cu`` by which K1, K2 and K4 read A.
@@ -1241,6 +1242,17 @@ FUSED_BRANCHES = (
     FusedBranch("direct_bf16", 129, 2500, 1001, "direct", 4, 1,
                 dtype="bfloat16", rng="threefry4x32", alpha=-0.75),
     FusedBranch("below_one_tile", 50, 40, 100, "tma_rows", 1, 1, ro=1, co=2),
+    # the panel ring steps PK = 2 TK: a last panel step half used, a
+    # contraction shorter than one panel step or than one step of A, and
+    # splits whose last range is short and ends inside a panel step
+    FusedBranch("odd_steps_cols", 200, 7 * 64, 300, "tma_cols", 2, 1,
+                layout="cols", ro=2),
+    FusedBranch("below_one_panel_step", 130, 96, 2100, "tma_rows", 16, 1,
+                ro=1),
+    FusedBranch("below_one_step_cluster8", 130, 24, 1500, "tma_rows", 8, 1,
+                ro=3),
+    FusedBranch("splits_short_last", 300, 4096 + 3 * 64, 1500, "tma_rows",
+                8, 4),
 )
 
 
@@ -1643,6 +1655,7 @@ def _branch_fused(kernel, b: FusedBranch, device, scale):
     kw = dict(alpha=b.alpha, rows_s=d, cols_s=m, ro_s=ro, co_s=co)
     with Tally() as t:
         got = wrapper(S, A, **kw)
+        again = wrapper(S, A, **kw)
     want = reference(S, A, **kw)
     layout = rt.Layout.RowMajor if kernel == "K1" else rt.Layout.ColMajor
     dist = S.dist
@@ -1656,8 +1669,9 @@ def _branch_fused(kernel, b: FusedBranch, device, scale):
          holds(f"output {got.dtype} {tuple(got.shape)}",
                got.dtype == dtype and tuple(got.shape) == (d, n)),
          rel(f"{kernel} vs its plain version", got, want,
-             BF16_REL_TOL if dtype == torch.bfloat16 else K1_REL_TOL)],
-        {kernel: 1},
+             BF16_REL_TOL if dtype == torch.bfloat16 else K1_REL_TOL),
+         equal(f"{kernel} launched again, bit for bit", again, got)],
+        {kernel: 2},
         oracles=[PortOracle(kernel.lower(), spec, as_np(want))])
 
 
@@ -1800,6 +1814,29 @@ def declared_facts(bid: str) -> dict:
     return branch_facts(bid)
 
 
+def _panel_facts(kernel, b: FusedBranch, max_active) -> dict:
+    """Where a K1/K2 branch's contraction ends against the panel ring's
+    step PK: shorter than one step of A, than one panel step, or longer;
+    its last panel step whole or part used; with several splits, the last
+    range whole or short."""
+    max_active = CARD_MAX_ACTIVE_CLUSTERS if max_active is None \
+        else max_active
+    a = kernel_operand(kernel, torch.empty((b.m, 0)), b.co)
+    m = a.shape[0]
+    shift = b.ro % 4 if kernel == "K2" else 0
+    plan = fs.launch_plan(b.d, m, b.n, shift, max_active)
+    steps = -(-m // fs.TK)
+    last = steps - (plan.splits - 1) * plan.split_steps
+    facts = {"contraction": ("< TK" if m < fs.TK else
+                             "< PK" if m < fs.PK else ">= PK"),
+             "last panel step": ("part" if last % (fs.PK // fs.TK)
+                                 else "whole")}
+    if plan.splits > 1:
+        facts["last split"] = ("short" if last < plan.split_steps
+                               else "whole")
+    return facts
+
+
 def grid_reach(max_active=None, max_ctas=None) -> dict:
     """(kernel, property) -> the values the branch grid reaches on a card
     with the given occupancy (the recorded card's by default)."""
@@ -1823,6 +1860,8 @@ def grid_reach(max_active=None, max_ctas=None) -> dict:
             for dim, tile in (("d", fs.TI), ("m", fs.TK), ("n", fs.TN)):
                 if getattr(b, dim) % tile:
                     add("off tile", dim)
+            for prop, value in _panel_facts(kernel, b, max_active).items():
+                add(prop, value)
         elif kernel == "K4":
             add("mode", f["mode"])
             add("splits", "1" if f["splits"] == 1 else ">1")
@@ -1867,7 +1906,9 @@ def grid_required(max_active=None) -> dict:
     """What the grid must reach: every load mode, cluster size (16 only
     where the card runs clusters of 16) and split count of K1 and K2, with
     both data types, generators and families, alpha != 1, aligned and
-    unaligned offsets and shapes off the tiles; K4's load modes, splits,
+    unaligned offsets and shapes off the tiles, contractions shorter than
+    a step of A and than a panel step, a last panel step part used and a
+    short last split; K4's load modes, splits,
     k in {1, 8, 16} (both KMAX) and bf16; K3's two kernels in both
     transforms, each with a shift, both store widths, its tiles and row
     tiles past grid.y; K5's bw 8 and 32, n = 1, every order, alpha != 1
@@ -1894,7 +1935,10 @@ def grid_required(max_active=None) -> dict:
             (k, "family"): {"Gaussian", "Uniform"},
             (k, "alpha"): {"1", "other"},
             (k, "offset"): {"aligned", "unaligned"},
-            (k, "off tile"): {"d", "m", "n"}})
+            (k, "off tile"): {"d", "m", "n"},
+            (k, "contraction"): {"< TK", "< PK", ">= PK"},
+            (k, "last panel step"): {"whole", "part"},
+            (k, "last split"): {"whole", "short"}})
     need.update({("K4", "mode"): modes, ("K4", "splits"): {"1", ">1"},
                  ("K4", "k"): {1, 8, 16}, ("K4", "kmax"): {8, 16},
                  ("K4", "dtype"): set(_DTYPES)})

@@ -4,17 +4,27 @@ their tiles, thread-block cluster, grid and contraction splits are chosen.
 The kernels only check it, so the CPU can hold it to its promises:
 
 - the tiles cover every output element exactly once, for ragged d and n and
-  K2's row shift, and the splits cover every contraction step exactly once;
+  K2's row shift, and the splits cover every contraction step exactly once,
+  each split range starting and ending on a panel step (PK) or at the
+  contraction's end;
+- the panel steps a CTA makes (the ``K1.launch`` span's ``panel_steps``)
+  are half its steps of TK, rounded up;
 - the cluster is a power of two up to 16 and divides grid.x;
 - every operator element is generated ceil(ceil(n / TN) / C) times, at most
   twice at the main path's shape and at the backward pass's;
-- the row limit follows TI;
+- the row limit follows TI; the plan's words are the launcher's fields and
+  its constants are csrc/fused_sketch.cu's; every variant of
+  fused_ablation.py matches that source;
 - the right route hands K1 a transposed view of A, which the plan keeps
   (no contiguous copy).
 
 ``max_active`` stands for the card's cudaOccupancyMaxActiveClusters: None
 (unknown, the portable cluster of 8 and no splits) or the counts an H100
 80GB HBM3 reports for this kernel (15 clusters of 8, 7 of 16)."""
+
+import re
+import sys
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -37,6 +47,9 @@ SHAPES = [  # (d, m, n, shift)
     (130, 1000, 5 * 256, 0),
     (1024, 16384, 16384, 0),
     (1, 1, 1, 0),
+    (300, 4096 + 3 * 64, 1500, 0),   # several splits, the last one short
+    (200, 7 * 64, 300, 0),           # an odd number of steps: half a panel
+    (100, 96, 2100, 2),              # m < PK
 ]
 
 
@@ -68,11 +81,30 @@ def test_tiles_cover_each_output_once(d, m, n, shift, max_active):
 def test_splits_cover_each_step_once(d, m, n, shift, max_active):
     plan = fs.launch_plan(d, m, n, shift, max_active)
     steps = max(1, -(-m // fs.TK))
-    assert plan.splits * plan.split_steps >= steps
-    assert (plan.splits - 1) * plan.split_steps < steps
+    hits = np.zeros(steps, dtype=np.int64)
+    per_panel = fs.PK // fs.TK
+    for z in range(plan.splits):   # split z: steps s0 .. s1 of TK
+        s0 = z * plan.split_steps
+        s1 = min(steps, s0 + plan.split_steps)
+        assert s0 < s1
+        hits[s0:s1] += 1
+        if plan.splits > 1:
+            assert s0 % per_panel == 0
+            assert s1 % per_panel == 0 or s1 == steps
+    assert np.all(hits == 1)
     if plan.splits > 1:
         assert plan.splits * d * n * 4 <= fs._MAX_WORKSPACE
         assert plan.split_steps >= fs._MIN_SPLIT_STEPS
+
+
+@pytest.mark.parametrize("max_active", [None, H100])
+@pytest.mark.parametrize("d,m,n,shift", SHAPES)
+def test_panel_steps_are_half_the_steps(d, m, n, shift, max_active):
+    plan = fs.launch_plan(d, m, n, shift, max_active)
+    steps = max(1, -(-m // fs.TK))
+    first = min(steps, plan.split_steps)   # steps of TK of split 0
+    assert plan.pk == fs.PK == 2 * fs.TK
+    assert plan.panel_steps == -(-first // 2)
 
 
 @pytest.mark.parametrize("max_active", [None, H100, {8: 15, 16: 0}])
@@ -113,12 +145,31 @@ def test_h100_plan_of_the_main_path():
     assert plan.grid == (16, 8)
     units = plan.grid[0] // plan.cluster * plan.grid[1] * plan.splits
     assert units % H100[16] == 0
+    # 7 splits of 148 steps of TK (74 panel steps; the last split 136):
+    # the workspace of partial sums stays at 7 x d x n float32, 112 MiB
+    assert plan.splits <= 7 and plan.split_steps % 2 == 0
+    assert plan.splits * MAIN[0] * MAIN[2] * 4 <= 112 << 20
+    assert plan.panel_steps == plan.split_steps // 2
 
 
 def test_plan_words_are_what_the_launcher_reads():
     plan = fs.launch_plan(*MAIN, 0, H100)
-    assert list(plan.words()) == [plan.ti, plan.tn, plan.tk, plan.cluster,
-                                  *plan.grid, plan.splits, plan.split_steps]
+    assert list(plan.words()) == [plan.ti, plan.tn, plan.tk, plan.pk,
+                                  plan.cluster, *plan.grid, plan.splits,
+                                  plan.split_steps]
+    # the launcher's Plan takes the words in this order, and its constants
+    # are the plan's
+    src = (Path(fs.__file__).parents[1] / "csrc"
+           / "fused_sketch.cu").read_text()
+    struct = re.search(r"struct Plan \{(.*?)\};", src, re.S).group(1)
+    fields = re.findall(r"\b(\w+)\s*[,;]", struct)
+    assert fields == ["ti", "tn", "tk", "pk", "cluster", "gx", "gy",
+                      "splits", "ks"]
+    const = {name: re.search(rf"constexpr int {name} = ([^;]+);",
+                             src).group(1) for name in ("TI", "TN", "TK",
+                                                        "PK")}
+    assert const == {"TI": str(fs.TI), "TN": str(fs.TN),
+                     "TK": str(fs.TK), "PK": "2 * TK"}
 
 
 def test_row_limit_follows_ti():
@@ -162,3 +213,36 @@ def test_colmajor_plan_keeps_strides():
     _, A, d, shift, _, _ = fs._colmajor_plan(S, a_mat.T, 250, 30, 5, 4)
     assert A.data_ptr() == a_mat.data_ptr() and not A.is_contiguous()
     assert (d, shift) == (250, 1)
+
+
+def _ablation():
+    """fused_ablation.py, which sits at the repository's root."""
+    import importlib.util
+    path = Path(__file__).resolve().parents[1] / "fused_ablation.py"
+    spec = importlib.util.spec_from_file_location("fused_ablation", path)
+    module = importlib.util.module_from_spec(spec)
+    root = str(path.parent)
+    sys.path.insert(0, root)   # its helper, kernel_variants.py
+    try:
+        spec.loader.exec_module(module)
+    finally:
+        sys.path.remove(root)
+    return module
+
+
+@pytest.mark.parametrize("variant", ["full", "no_generation", "no_conversion",
+                                     "no_products", "barriers_and_tma",
+                                     "barriers_only",
+                                     "barriers_only_4_stages",
+                                     "panel_step_64",
+                                     "barriers_only_panel_step_64"])
+def test_ablation_variant_switches_its_part_off(variant):
+    # each of fused_ablation.py's substitutions matches the kernels' source
+    # as it stands (the script itself runs only on the card), so no variant
+    # is timed that switches nothing off
+    src = (Path(fs.__file__).parents[1] / "csrc"
+           / "fused_sketch.cu").read_text()
+    subs = _ablation().VARIANTS[variant]
+    assert bool(subs) == (variant != "full")
+    for old, new in subs:
+        assert old in src and old != new, (variant, old)

@@ -224,7 +224,8 @@ def test_recordings_do_not_nest():
 @pytest.mark.parametrize("colmajor", [False, True])
 def test_launch_span_reports_the_launch_plan(monkeypatch, colmajor):
     """K1's and K2's launcher, stood in for on the CPU: the launch span
-    holds the plan that ``launch_plan`` chose and the launcher's call."""
+    holds the plan that ``launch_plan`` chose (with the panel-ring handoffs
+    a CTA makes) and the launcher's call."""
     calls = []
 
     class Lib:
@@ -247,8 +248,11 @@ def test_launch_span_reports_the_launch_plan(monkeypatch, colmajor):
     (span,) = rec.spans
     plan = fs.launch_plan(d, m, n, 0, active)
     assert span.name == ("K2.launch" if colmajor else "K1.launch")
-    assert span.args == {"cluster": plan.cluster, "splits": plan.splits}
+    assert span.args == {"cluster": plan.cluster, "splits": plan.splits,
+                         "panel_steps": plan.panel_steps}
     assert plan.splits > 1
+    # the panel ring's handoffs: half the steps of TK of the plan's split
+    assert span.args["panel_steps"] == -(-plan.split_steps // 2)
     assert span.start_ns <= calls[0] <= span.end_ns
 
 
