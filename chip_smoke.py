@@ -458,9 +458,8 @@ PEAK_BYTES = 3.35e12   # H100 SXM HBM3 bytes/s
 D3, M3, N3, K3_NNZ = 1024, 65536, 2048, 8   # run_all.py config 3
 R4, C4, D4, NNZ4 = 20000, 10000, 512, 1_000_000   # run_all.py config 4
 KERNEL_NAMES = ("fused_sketch_T_kernel", "fused_sketch_kernel",
-                "fused_sketch_reduce_kernel", "fill_block_T_kernel",
-                "fill_block_kernel", "saso_sketch_kernel",
-                "saso_reduce_kernel", "ell_spmm_kernel",
+                "split_reduce_kernel", "fill_block_T_kernel",
+                "fill_block_kernel", "saso_sketch_kernel", "ell_spmm_kernel",
                 "fill_block64_T_kernel", "fill_block64_kernel",
                 "saso_fill_kernel")
 WGMMA_KERNELS = ("fused_sketch_kernel", "fused_sketch_T_kernel",
@@ -3832,7 +3831,7 @@ def profile_main(rt, S, A, card):
     busy_us = sum(event_device_us(e) for e in kernels)
     k1_us = sum(event_device_us(e) for e in kernels
                 if "fused_sketch_kernel" in e.key
-                or "fused_sketch_reduce_kernel" in e.key)
+                or "split_reduce_kernel" in e.key)
     if busy_us == 0:
         print("profiler: the trace shows no device time; host share not "
               "measured")

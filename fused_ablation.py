@@ -68,7 +68,7 @@ NO_PRODUCTS = [
     ("          wgmma_m64n256k16<0>(acc, da + 2 * kk, db + 2 * kk);", ""),
 ]
 NO_LOADS = [  # A taken as unloadable by TMA, and its element loads skipped
-    ("  const int amode = a_map<TA>(a, sk, sn, m, n, &map);",
+    ("  const int amode = a_map<TA, TN, TK>(a, sk, sn, m, n, &map);",
      "  const int amode = kLoadDirect;"),
     ("        for (int it = 0; it < kEights / 128; ++it) {",
      "        for (int it = 0; it < 0; ++it) {"),

@@ -50,6 +50,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "hopper.cuh"
+
 namespace {
 
 constexpr int kWarps = 8;
@@ -73,19 +75,7 @@ constexpr int kSmemBytes = kListBytes + kRingBytes;
 // 16 bytes from global to shared memory, asynchronously (L2 only)
 __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
-               :: "r"(static_cast<uint32_t>(__cvta_generic_to_shared(dst))),
-                  "l"(src)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-// wait until at most N of this thread's newest groups are in flight
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+               :: "r"(smem_u32(dst)), "l"(src) : "memory");
 }
 
 __global__ void __launch_bounds__(kThreads, 2)

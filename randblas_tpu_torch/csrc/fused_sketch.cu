@@ -32,11 +32,14 @@
 // block (the natural block transposed), with the TPU kernel's Gaussian
 // transform or the staged fill's. Its design is in the K3 section below.
 //
-// All share one counter-based generator, words4, and the same arithmetic
-// as the plain PyTorch versions in ops/fused_sketch.py and ops/dense_fill.py
-// (every multiply and add is rounded on its own, with __fmul_rn /
-// __fadd_rn, so nothing is contracted into an FMA; logf, sqrtf, sinf, cosf
-// and sincosf are the accurate versions: build without --use_fast_math).
+// All share one counter-based generator, words4 of random123.cuh (K7's
+// too), and the same arithmetic as the plain PyTorch versions in
+// ops/fused_sketch.py and ops/dense_fill.py (every multiply and add is
+// rounded on its own, with __fmul_rn / __fadd_rn, so nothing is contracted
+// into an FMA; logf, sqrtf, sinf, cosf and sincosf are the accurate
+// versions: build without --use_fast_math). The Hopper plumbing that K1, K2
+// share with K4 (bf16 packing, the swizzle, mbarriers, TMA, the split sum)
+// is hopper.cuh.
 //
 // What bounds K1 and K2 on the H100, and what this design does about it:
 // - Generation. The product alone is tensor-core work (2 d m n flops); the
@@ -94,8 +97,9 @@
 //   grid of a few rounds of clusters leaves the card part idle in the last
 //   one. The launch plan (ops/fused_sketch.py::launch_plan: TI, TN, TK, PK,
 //   C, the grid, the splits) then cuts the contraction into ranges on
-//   grid.z, each starting on a panel step; fused_sketch_reduce_kernel adds
-//   their partial sums in split order. The launcher only checks the plan.
+//   grid.z, each starting on a panel step; split_reduce_kernel (hopper.cuh)
+//   adds their partial sums in split order. The launcher only checks the
+//   plan.
 // - A CTA whose columns lie past n still generates its share and joins
 //   every barrier: the cluster would deadlock otherwise.
 // Sums are deterministic: no atomics, a fixed k order inside each CTA and a
@@ -103,20 +107,17 @@
 
 #include <cstdint>
 #include <type_traits>
-#include <cuda.h>
-#include <cudaTypedefs.h>
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include "hopper.cuh"
+#include "random123.cuh"
 
 namespace {
 
-constexpr int kPhilox4x32 = 0;
-constexpr int kThreefry4x32 = 1;
-
-struct Seed {
-  uint32_t c[4];  // counter words, little-endian
-  uint32_t k[4];  // key words (Philox uses k[0], k[1])
-};
+using r123::kPhilox4x32;
+using r123::kThreefry4x32;
+using r123::Seed;
+using r123::words4;
 
 // float32 constants as exact bit patterns: the JAX package rounds the same
 // decimal values to float32 (rng/transforms.py)
@@ -127,92 +128,6 @@ constexpr float kSinpiC1 = -0x1.4abbbap+2f;
 constexpr float kSinpiC2 = 0x1.466812p+1f;
 constexpr float kSinpiC3 = -0x1.32423ep-1f;
 constexpr float kSinpiC4 = 0x1.3d395ep-4f;
-
-// seed counter + a 64-bit offset, carried across all four words
-__device__ __forceinline__ void counter_at(const Seed& s, uint64_t off,
-                                           uint32_t x[4]) {
-  const uint64_t lo = ((uint64_t)s.c[1] << 32) | s.c[0];
-  const uint64_t sum = lo + off;
-  const uint32_t carry = sum < off ? 1u : 0u;
-  x[0] = (uint32_t)sum;
-  x[1] = (uint32_t)(sum >> 32);
-  x[2] = s.c[2] + carry;
-  x[3] = s.c[3] + ((x[2] < carry) ? 1u : 0u);
-}
-
-__device__ __forceinline__ void philox4x32_10(uint32_t x[4], uint32_t k0,
-                                              uint32_t k1) {
-#pragma unroll
-  for (int r = 0; r < 10; ++r) {
-    if (r > 0) {
-      k0 += 0x9E3779B9u;
-      k1 += 0xBB67AE85u;
-    }
-    const uint32_t hi0 = __umulhi(0xD2511F53u, x[0]);
-    const uint32_t lo0 = 0xD2511F53u * x[0];
-    const uint32_t hi1 = __umulhi(0xCD9E8D57u, x[2]);
-    const uint32_t lo1 = 0xCD9E8D57u * x[2];
-    const uint32_t y0 = hi1 ^ x[1] ^ k0;
-    const uint32_t y2 = hi0 ^ x[3] ^ k1;
-    x[0] = y0;
-    x[1] = lo1;
-    x[2] = y2;
-    x[3] = lo0;
-  }
-}
-
-__device__ __forceinline__ uint32_t rotl32(uint32_t x, int r) {
-  return (x << r) | (x >> (32 - r));
-}
-
-// one Threefry round: even rounds mix (0,1),(2,3), odd rounds (0,3),(2,1)
-template <int RA, int RB, bool ODD>
-__device__ __forceinline__ void tf_round(uint32_t x[4]) {
-  if (!ODD) {
-    x[0] += x[1];
-    x[1] = rotl32(x[1], RA) ^ x[0];
-    x[2] += x[3];
-    x[3] = rotl32(x[3], RB) ^ x[2];
-  } else {
-    x[0] += x[3];
-    x[3] = rotl32(x[3], RA) ^ x[0];
-    x[2] += x[1];
-    x[1] = rotl32(x[1], RB) ^ x[2];
-  }
-}
-
-// four rounds then key injection S; odd S uses rotations 0-3, even S 4-7
-template <int S>
-__device__ __forceinline__ void tf_four(uint32_t x[4], const uint32_t ks[5]) {
-  if (S % 2 == 1) {
-    tf_round<10, 26, false>(x);
-    tf_round<11, 21, true>(x);
-    tf_round<13, 27, false>(x);
-    tf_round<23, 5, true>(x);
-  } else {
-    tf_round<6, 20, false>(x);
-    tf_round<17, 11, true>(x);
-    tf_round<25, 10, false>(x);
-    tf_round<18, 20, true>(x);
-  }
-  x[0] += ks[S % 5];
-  x[1] += ks[(S + 1) % 5];
-  x[2] += ks[(S + 2) % 5];
-  x[3] += ks[(S + 3) % 5] + (uint32_t)S;
-}
-
-__device__ __forceinline__ void threefry4x32_20(uint32_t x[4],
-                                                const uint32_t k[4]) {
-  const uint32_t ks[5] = {k[0], k[1], k[2], k[3],
-                          0x1BD11BDAu ^ k[0] ^ k[1] ^ k[2] ^ k[3]};
-#pragma unroll
-  for (int i = 0; i < 4; ++i) x[i] += ks[i];
-  tf_four<1>(x, ks);
-  tf_four<2>(x, ks);
-  tf_four<3>(x, ks);
-  tf_four<4>(x, ks);
-  tf_four<5>(x, ks);
-}
 
 // uneg11 on the signed view of a word: s * 2^-31 + 2^-32
 __device__ __forceinline__ float uneg11_i32(int32_t s) {
@@ -247,18 +162,6 @@ __device__ __forceinline__ void boxmul_fast(uint32_t a, uint32_t b, float& x,
       au > 0.5f ? (u >= 0.0f ? __fsub_rn(1.0f, au) : __fsub_rn(au, 1.0f)) : u;
   x = __fmul_rn(sinpi_half(ws), r);
   y = __fmul_rn(sinpi_half(__fsub_rn(0.5f, au)), r);
-}
-
-// the generator's four output words of the counter block at seed + off
-template <int RNG>
-__device__ __forceinline__ void words4(const Seed& seed, uint64_t off,
-                                       uint32_t x[4]) {
-  counter_at(seed, off, x);
-  if (RNG == kPhilox4x32) {
-    philox4x32_10(x, seed.k[0], seed.k[1]);
-  } else {
-    threefry4x32_20(x, seed.k);
-  }
 }
 
 // the four values of the counter block at seed + off, as K1 and K2 use
@@ -306,40 +209,12 @@ constexpr int BARRIERS = 2 * PANEL_STAGES + TILES + 2;
 // may have
 constexpr int SMEM_BYTES = 1024 + PANEL_STAGES * PANEL_BYTES +
                            TILES * TILE_BYTES + STAGING_BYTES + 8 * BARRIERS;
-// how the consumers read A: with plain loads, or from the staging tile
-// that TMA fills, laid out [k][n] (A row-major) or [n][k] (column-major)
-constexpr int kLoadDirect = 0;
-constexpr int kTmaRows = 1;
-constexpr int kTmaCols = 2;
-
-__device__ __forceinline__ uint32_t pack_bf16(__nv_bfloat16 lo,
-                                              __nv_bfloat16 hi) {
-  return (uint32_t)__bfloat16_as_ushort(lo) |
-         ((uint32_t)__bfloat16_as_ushort(hi) << 16);
-}
-
-__device__ __forceinline__ __nv_bfloat16 to_bf16(float x) {
-  return __float2bfloat16_rn(x);
-}
-__device__ __forceinline__ __nv_bfloat16 to_bf16(__nv_bfloat16 x) { return x; }
-
-// byte offset of 16-byte chunk `chunk` of row `row` in a K-major tile of
-// 128-byte rows under the 128-byte swizzle (chunk ^= row % 8 inside each
-// 1024-byte atom of eight rows), the layout wgmma's descriptors read
-__device__ __forceinline__ uint32_t swz(int row, int chunk) {
-  return (uint32_t)row * ROW_BYTES + ((uint32_t)(chunk ^ (row & 7)) << 4);
-}
-
 // byte offset of 16-byte chunk `chunk` (0 to 8 KSTEPS - 1) of row `row` in
 // a panel stage: chunks 0-7 in the first atom of the row's KSTEPS atoms,
 // 8-15 in the second
 __device__ __forceinline__ uint32_t panel_off(int row, int chunk) {
   return (uint32_t)(row >> 3) * (KSTEPS * ATOM_BYTES) +
          (uint32_t)(chunk >> 3) * ATOM_BYTES + swz(row & 7, chunk & 7);
-}
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
 __device__ __forceinline__ uint32_t cluster_rank() {
@@ -367,33 +242,6 @@ __device__ __forceinline__ void cluster_sync() {
                "barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
 }
 
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
-               :: "r"(bar), "r"(count) : "memory");
-}
-
-// spin until the barrier's phase differs from `parity`
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "WAIT:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
-      "@!p bra WAIT;\n"
-      "}\n" :: "r"(bar), "r"(parity) : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
-               :: "r"(bar) : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive_expect(uint32_t bar,
-                                                   uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
-               :: "r"(bar), "r"(bytes) : "memory");
-}
-
 // arrive on a barrier of any CTA of the cluster (a shared::cluster address)
 __device__ __forceinline__ void mbar_arrive_cluster(uint32_t bar) {
   asm volatile("mbarrier.arrive.shared::cluster.b64 _, [%0];\n"
@@ -408,44 +256,6 @@ __device__ __forceinline__ void bulk_to_peer(uint32_t dst, uint32_t src,
       "cp.async.bulk.shared::cluster.shared::cta.mbarrier::complete_tx::bytes "
       "[%0], [%1], %2, [%3];\n"
       :: "r"(dst), "r"(src), "r"(bytes), "r"(bar) : "memory");
-}
-
-// TMA: the box of `map` (half of A's TK x TN tile) at (c0, c1) into this
-// CTA's shared memory, completing its bytes on `bar`
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
-                                         int c0, int c1, uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%2, %3}], [%4];\n"
-      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1),
-         "r"(bar)
-      : "memory");
-}
-
-// wgmma descriptor of a 128-byte-swizzled tile at `addr` (atoms of eight
-// 128-byte rows): `lbo` bytes between 64-element blocks along M or N (an
-// MN-major tile only), `sbo` bytes between atoms along the other dimension
-__device__ __forceinline__ uint64_t desc_sw128(uint32_t addr, uint32_t lbo,
-                                               uint32_t sbo) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
-         ((uint64_t)(sbo >> 4) << 32) | ((uint64_t)1 << 62);
-}
-
-// byte offset of element (k, j) in the MN-major data tile: four blocks of
-// 64 columns, each TK rows of 128 bytes under the 128-byte swizzle
-__device__ __forceinline__ uint32_t mn_off(int k, int j) {
-  return (uint32_t)(j >> 6) * (TK * ROW_BYTES) + swz(k, (j & 63) >> 3) +
-         (uint32_t)(j & 7) * 2;
-}
-
-// four values of A as four bf16, rounded to nearest even
-__device__ __forceinline__ uint2 four_bf16(const float* p) {
-  const float4 v = *reinterpret_cast<const float4*>(p);
-  return make_uint2(pack_bf16(to_bf16(v.x), to_bf16(v.y)),
-                    pack_bf16(to_bf16(v.z), to_bf16(v.w)));
-}
-__device__ __forceinline__ uint2 four_bf16(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint2*>(p);
 }
 
 // keep the accumulators in place across the asynchronous wgmma
@@ -608,7 +418,8 @@ __device__ __forceinline__ void sketch_tile(const TA* __restrict__ a,
           for (int it = 0; it < kFours / 128; ++it) {
             const int t = lt + it * 128;
             const int k = t / (TN / 4), j = 4 * (t % (TN / 4));
-            *reinterpret_cast<uint2*>(tile + mn_off(wg * (TK / 2) + k, j)) =
+            *reinterpret_cast<uint2*>(
+                tile + mn_off<TK>(wg * (TK / 2) + k, j)) =
                 four_bf16(a_half + k * TN + j);
           }
         } else {
@@ -829,20 +640,6 @@ fused_sketch_T_kernel(const TA* __restrict__ a, int64_t sk, int64_t sn,
                                     shift, ctr_stride, seed, alpha);
 }
 
-// out = alpha * the sum of the `splits` partial products in ws, in split
-// order (deterministic; no atomics)
-__global__ void fused_sketch_reduce_kernel(const float* __restrict__ ws,
-                                           float* __restrict__ out,
-                                           int64_t count, int splits,
-                                           float alpha) {
-  for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < count;
-       i += (int64_t)gridDim.x * blockDim.x) {
-    float sum = ws[i];
-    for (int z = 1; z < splits; ++z) sum += ws[z * count + i];
-    out[i] = alpha * sum;
-  }
-}
-
 // ---------------------------------------------------------------- K3 ----
 //
 // The block's natural element (r, c), 0 <= r < rows, 0 <= c < cols, is lane
@@ -1052,15 +849,6 @@ fill_block_T_kernel(float* __restrict__ out, int64_t rows, int64_t cols,
   }
 }
 
-Seed make_seed(const uint32_t* words) {
-  Seed s;
-  for (int i = 0; i < 4; ++i) {
-    s.c[i] = words[i];
-    s.k[i] = words[4 + i];
-  }
-  return s;
-}
-
 // The launch plan of K1 and K2, computed by ops/fused_sketch.py::launch_plan
 // and checked here: the compiled tile sizes and panel step, a cluster of 1,
 // 2, 4, 8 or 16 CTAs along n that divides grid.x, a grid that covers the
@@ -1083,112 +871,17 @@ bool plan_ok(const Plan& p, int64_t rows, int64_t m, int64_t n) {
          (int64_t)p.splits * p.ks * TK >= m;
 }
 
-template <typename Kernel>
-cudaError_t prepare(Kernel kernel, int cluster) {
-  cudaError_t e = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
-  if (e == cudaSuccess && cluster > 8) {
-    e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
-  }
-  return e;
-}
-
-cudaLaunchConfig_t cluster_config(const Plan& p, cudaStream_t stream,
-                                  cudaLaunchAttribute* attr) {
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(p.gx, p.gy, (unsigned)p.splits);
-  cfg.blockDim = dim3(THREADS, 1, 1);
-  cfg.dynamicSmemBytes = SMEM_BYTES;
-  cfg.stream = stream;
-  attr->id = cudaLaunchAttributeClusterDimension;
-  attr->val.clusterDim.x = (unsigned)p.cluster;
-  attr->val.clusterDim.y = 1;
-  attr->val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  return cfg;
-}
-
+// K1's or K2's `kernel` on the plan's grid and clusters
 template <typename Kernel, typename... Args>
 cudaError_t launch_cluster(Kernel kernel, const Plan& p, cudaStream_t stream,
                            Args... args) {
-  cudaError_t e = prepare(kernel, p.cluster);
+  cudaError_t e = prepare(kernel, SMEM_BYTES, p.cluster);
   if (e != cudaSuccess) return e;
   cudaLaunchAttribute attr;
-  const cudaLaunchConfig_t cfg = cluster_config(p, stream, &attr);
+  const cudaLaunchConfig_t cfg =
+      cluster_config(dim3(p.gx, p.gy, (unsigned)p.splits), THREADS,
+                     SMEM_BYTES, p.cluster, stream, &attr);
   return cudaLaunchKernelEx(&cfg, kernel, args...);
-}
-
-// the sketch kernel into `out`, or, split, into the partial slices of `ws`
-// and then their sum into `out`
-template <typename Launch>
-cudaError_t launch_split(Launch launch, const Plan& p, float* ws, float* out,
-                         int64_t d, int64_t n, float alpha,
-                         cudaStream_t stream) {
-  if (p.splits == 1) return launch(out, alpha);
-  cudaError_t e = launch(ws, 1.0f);
-  if (e != cudaSuccess) return e;
-  const int64_t count = d * n;
-  const int64_t want = (count + 255) / 256;
-  const unsigned blocks = (unsigned)(want < 132 * 16 ? want : 132 * 16);
-  fused_sketch_reduce_kernel<<<blocks, 256, 0, stream>>>(ws, out, count,
-                                                         p.splits, alpha);
-  return cudaGetLastError();
-}
-
-// cuTensorMapEncodeTiled, looked up at run time so that the library need
-// not link libcuda
-PFN_cuTensorMapEncodeTiled_v12000 encode_tiled() {
-  static PFN_cuTensorMapEncodeTiled_v12000 fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found = cudaDriverEntryPointSymbolNotFound;
-#if CUDART_VERSION >= 12050
-    cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                     cudaEnableDefault, &found);
-#else
-    cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
-                            &found);
-#endif
-    if (found == cudaDriverEntryPointSuccess) {
-      fn = reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(p);
-    }
-  }
-  return fn;
-}
-
-// The TMA map of the halves of A's (TK x TN) tiles where A's layout allows
-// one (one unit stride, the other a multiple of 16 bytes, a 16-byte-aligned
-// base):
-// kTmaRows for row-major A, kTmaCols for column-major A; else kLoadDirect
-// and the producers load A themselves.
-template <typename TA>
-int a_map(const void* a, int64_t sk, int64_t sn, int64_t m, int64_t n,
-          CUtensorMap* map) {
-  const int64_t es = (int64_t)sizeof(TA);
-  const bool rows = sn == 1 && (sk * es) % 16 == 0;
-  const bool cols = !rows && sk == 1 && (sn * es) % 16 == 0;
-  auto encode = encode_tiled();
-  if (!(rows || cols) || reinterpret_cast<uintptr_t>(a) % 16 != 0 ||
-      m <= 0 || m >= (1LL << 31) || n >= (1LL << 31) || encode == nullptr) {
-    return kLoadDirect;
-  }
-  const cuuint64_t dims[2] = {(cuuint64_t)(rows ? n : m),
-                              (cuuint64_t)(rows ? m : n)};
-  const cuuint64_t strides[1] = {(cuuint64_t)((rows ? sk : sn) * es)};
-  // a box is half a tile: each consumer warpgroup loads the half it
-  // converts
-  const cuuint32_t box[2] = {(cuuint32_t)(rows ? TN : TK),
-                             (cuuint32_t)(rows ? TK / 2 : TN / 2)};
-  const cuuint32_t unit[2] = {1, 1};
-  const CUresult r = encode(
-      map, sizeof(TA) == 4 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
-                           : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
-      2, const_cast<void*>(a), dims, strides, box, unit,
-      CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
-      CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? (rows ? kTmaRows : kTmaCols) : kLoadDirect;
 }
 
 // K1 (COLMAJOR false) or K2 on A of type TA with generator RNG
@@ -1200,7 +893,7 @@ cudaError_t launch_fused(const void* a, int64_t sk, int64_t sn, float* ws,
                          cudaStream_t stream) {
   const TA* ap = static_cast<const TA*>(a);
   CUtensorMap map = {};
-  const int amode = a_map<TA>(a, sk, sn, m, n, &map);
+  const int amode = a_map<TA, TN, TK>(a, sk, sn, m, n, &map);
   const int64_t ks = p.ks;
   auto run = [&](float* dst, float scale) {
     if constexpr (COLMAJOR) {
@@ -1215,7 +908,7 @@ cudaError_t launch_fused(const void* a, int64_t sk, int64_t sn, float* ws,
                             dst, d, m, n, ctr_stride, seed, scale);
     }
   };
-  return launch_split(run, p, ws, out, d, n, alpha, stream);
+  return launch_split(run, p.splits, ws, out, d * n, alpha, stream);
 }
 
 // K3 in the natural orientation: grid.x over the output quads, 8 warps of
@@ -1315,7 +1008,7 @@ int fused_entry(const void* a, int a_bf16, int64_t sk, int64_t sn,
   if (!plan_ok(p, d + shift, m, n) || (p.splits > 1 && ws == nullptr)) {
     return (int)cudaErrorInvalidValue;
   }
-  const Seed seed = make_seed(seed_words);
+  const Seed seed = r123::make_seed(seed_words);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   // the instantiation for the data type and the generator
   auto go = [&](auto ta, auto rng_code) {
@@ -1371,13 +1064,8 @@ extern "C" int rbt_fused_sketch_T(const void* a, int a_bf16, int64_t sk,
 // many such clusters the current device runs at once
 extern "C" int rbt_fused_max_clusters(int cluster, int* count) {
   if (cluster < 1 || cluster > MAX_CLUSTER) return (int)cudaErrorInvalidValue;
-  auto kernel = fused_sketch_kernel<float, kPhilox4x32, true>;
-  cudaError_t e = prepare(kernel, cluster);
-  if (e != cudaSuccess) return (int)e;
-  const Plan p{TI, TN, TK, PK, cluster, (unsigned)cluster, 1, 1, 1};
-  cudaLaunchAttribute attr;
-  const cudaLaunchConfig_t cfg = cluster_config(p, nullptr, &attr);
-  return (int)cudaOccupancyMaxActiveClusters(count, (void*)kernel, &cfg);
+  return max_active_clusters(fused_sketch_kernel<float, kPhilox4x32, true>,
+                             THREADS, SMEM_BYTES, cluster, count);
 }
 
 // K3: the (rows, cols) natural block whose row r, counter block b lives at
@@ -1396,13 +1084,8 @@ extern "C" int rbt_fill_block(float* out, int64_t rows, int64_t cols,
     return (int)cudaErrorInvalidValue;
   }
   // the block's first counter, carried across all four words (RNGState.incr)
-  Seed seed = make_seed(seed_words);
-  const uint64_t lo = (((uint64_t)seed.c[1] << 32) | seed.c[0]) + offset;
-  const uint32_t carry = lo < offset ? 1u : 0u;
-  seed.c[0] = (uint32_t)lo;
-  seed.c[1] = (uint32_t)(lo >> 32);
-  seed.c[2] += carry;
-  seed.c[3] += seed.c[2] < carry ? 1u : 0u;
+  Seed seed = r123::make_seed(seed_words);
+  r123::counter4(seed, offset, seed.c);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return (int)(rng == kPhilox4x32
                    ? fill_dispatch<kPhilox4x32>(out, rows, cols, shift,

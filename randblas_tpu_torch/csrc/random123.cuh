@@ -5,8 +5,9 @@
 // 64-bit offset from a seed's counter, carried across every counter word
 // (Random123's ctr.incr, rng/bits.py ctr_add_words).
 //
-// Included by saso_fill.cu (K7). K1-K4 keep their own copies of the 4x32
-// generators in fused_sketch.cu.
+// Included by fused_sketch.cu (K1, K2, K3: the 4x32 generators) and
+// saso_fill.cu (K7: all four). The codes below are the launchers' `rng`
+// argument, and ops/_build.py's GEN_CODES.
 
 #pragma once
 
@@ -24,6 +25,31 @@ struct Seed {
   uint32_t c[4];
   uint32_t k[4];
 };
+
+// a seed from the launchers' eight words: counter words 0-3, then key words
+// 0-3
+inline Seed make_seed(const uint32_t* words) {
+  Seed s;
+  for (int i = 0; i < 4; ++i) {
+    s.c[i] = words[i];
+    s.k[i] = words[4 + i];
+  }
+  return s;
+}
+
+// The four-word counter of the block at the seed's counter plus `off`: the
+// offset's low and high halves add to counter words 0 and 1 and the carry
+// runs up through words 2 and 3
+__host__ __device__ __forceinline__ void counter4(const Seed& s, uint64_t off,
+                                                  uint32_t x[4]) {
+  const uint64_t lo = ((uint64_t)s.c[1] << 32) | s.c[0];
+  const uint64_t sum = lo + off;
+  const uint32_t carry = sum < off ? 1u : 0u;
+  x[0] = (uint32_t)sum;
+  x[1] = (uint32_t)(sum >> 32);
+  x[2] = s.c[2] + carry;
+  x[3] = s.c[3] + ((x[2] < carry) ? 1u : 0u);
+}
 
 __device__ __forceinline__ uint32_t rotl32(uint32_t x, int r) {
   return (x << r) | (x >> (32 - r));
@@ -137,27 +163,32 @@ __device__ __forceinline__ void threefry2x32_20(uint32_t x[2],
   tf2_four<5, 13, 15, 26, 6>(x, ks);
 }
 
+// The four output words of 4x32 generator RNG's block at the seed's
+// counter plus `off`
+template <int RNG>
+__device__ __forceinline__ void words4(const Seed& s, uint64_t off,
+                                       uint32_t x[4]) {
+  counter4(s, off, x);
+  if (RNG == kPhilox4x32) {
+    philox4x32_10(x, s.k[0], s.k[1]);
+  } else {
+    threefry4x32_20(x, s.k);
+  }
+}
+
 // The first two output words of generator RNG's block at the seed's counter
-// plus `off`. The offset's low and high halves add to counter words 0 and 1
-// and the carry runs up through words 2 and 3 of a four-word counter; a
-// two-word counter wraps at its top, as Random123's ctr.incr does.
+// plus `off`: counter4's carry for a four-word counter; a two-word counter
+// wraps at its top, as Random123's ctr.incr does.
 template <int RNG>
 __device__ __forceinline__ void words2(const Seed& s, uint64_t off,
                                        uint32_t& w0, uint32_t& w1) {
-  const uint64_t lo = ((uint64_t)s.c[1] << 32) | s.c[0];
-  const uint64_t sum = lo + off;
   if (RNG == kPhilox4x32 || RNG == kThreefry4x32) {
-    const uint32_t carry = sum < off ? 1u : 0u;
-    uint32_t x[4] = {(uint32_t)sum, (uint32_t)(sum >> 32), s.c[2] + carry, 0};
-    x[3] = s.c[3] + ((x[2] < carry) ? 1u : 0u);
-    if (RNG == kPhilox4x32) {
-      philox4x32_10(x, s.k[0], s.k[1]);
-    } else {
-      threefry4x32_20(x, s.k);
-    }
+    uint32_t x[4];
+    words4<RNG>(s, off, x);
     w0 = x[0];
     w1 = x[1];
   } else {
+    const uint64_t sum = (((uint64_t)s.c[1] << 32) | s.c[0]) + off;
     uint32_t x[2] = {(uint32_t)sum, (uint32_t)(sum >> 32)};
     if (RNG == kPhilox2x32) {
       philox2x32_10(x, s.k[0]);

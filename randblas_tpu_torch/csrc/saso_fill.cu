@@ -179,11 +179,7 @@ extern "C" int rbt_saso_fill(void* major, void* minor, void* vals,
   if (dim_minor == 0) return (int)cudaSuccess;
   if (major == nullptr || minor == nullptr || vals == nullptr)
     return (int)cudaErrorInvalidValue;
-  r123::Seed seed;
-  for (int w = 0; w < 4; ++w) {
-    seed.c[w] = words[w];
-    seed.k[w] = words[4 + w];
-  }
+  const r123::Seed seed = r123::make_seed(words);
   const Out out{major, minor, vals, idx64, val_bytes, plus_bits, minus_bits};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   uint2* log = static_cast<uint2*>(scratch);

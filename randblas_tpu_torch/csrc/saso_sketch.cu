@@ -53,16 +53,15 @@
 //   saso_ablation.py).
 // - Filling 132 SMs. One CTA fits an SM (212 or 219 KB of shared memory).
 //   The launch plan (ops/saso_sketch.py::launch_plan) cuts the contraction
-//   into splits on grid.z; saso_reduce_kernel adds their partial sums in
-//   split order. The launcher only checks the plan.
+//   into splits on grid.z; split_reduce_kernel (hopper.cuh) adds their
+//   partial sums in split order. The launcher only checks the plan.
 // Sums are deterministic: no atomics, the wgmma order inside each CTA and a
 // fixed split order. Launching twice gives the same bits.
 
 #include <cstdint>
-#include <cuda.h>
-#include <cudaTypedefs.h>
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -104,118 +103,11 @@ struct Rings {
                                TABLES * kTableBytes +
                                (2 * kPanels + STAGES + 4) * 8;
 };
-// how the consumers read A: with plain loads, or from the staging tile
-// that TMA fills, laid out [k][n] (A row-major) or [n][k] (column-major)
-constexpr int kLoadDirect = 0;
-constexpr int kTmaRows = 1;
-constexpr int kTmaCols = 2;
-
-__device__ __forceinline__ uint32_t pack_bf16(__nv_bfloat16 lo,
-                                              __nv_bfloat16 hi) {
-  return (uint32_t)__bfloat16_as_ushort(lo) |
-         ((uint32_t)__bfloat16_as_ushort(hi) << 16);
-}
-
-__device__ __forceinline__ __nv_bfloat16 to_bf16(float x) {
-  return __float2bfloat16_rn(x);
-}
-__device__ __forceinline__ __nv_bfloat16 to_bf16(__nv_bfloat16 x) { return x; }
-
-// byte offset of 16-byte chunk `chunk` of row `row` in a K-major tile of
-// 128-byte rows under the 128-byte swizzle (chunk ^= row % 8 inside each
-// 1024-byte atom of eight rows), the layout wgmma's descriptors read
-__device__ __forceinline__ uint32_t swz(int row, int chunk) {
-  return (uint32_t)row * ROW_BYTES + ((uint32_t)(chunk ^ (row & 7)) << 4);
-}
-
-// byte offset of element (row, c) of a K-major bf16 panel
-__device__ __forceinline__ uint32_t panel_off(int row, int c) {
-  return swz(row, c >> 3) + (uint32_t)(c & 7) * 2;
-}
-
-// byte offset of element (k, j) in the MN-major data tile: two blocks of
-// 64 columns, each TK rows of 128 bytes under the 128-byte swizzle
-__device__ __forceinline__ uint32_t mn_off(int k, int j) {
-  return (uint32_t)(j >> 6) * (TK * ROW_BYTES) + swz(k, (j & 63) >> 3) +
-         (uint32_t)(j & 7) * 2;
-}
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
-               :: "r"(bar), "r"(count) : "memory");
-}
-
-// spin until the barrier's phase differs from `parity`
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "WAIT:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
-      "@!p bra WAIT;\n"
-      "}\n" :: "r"(bar), "r"(parity) : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
-               :: "r"(bar) : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive_expect(uint32_t bar,
-                                                   uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
-               :: "r"(bar), "r"(bytes) : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
 
 // 4 bytes from global to shared memory, asynchronously
 __device__ __forceinline__ void cp_async4(void* dst, const void* src) {
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n"
                :: "r"(smem_u32(dst)), "l"(src) : "memory");
-}
-
-// wait until at most N of this thread's newest groups are in flight
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
-}
-
-// TMA: the box of `map` (half of A's TK x TN tile) at (c0, c1) into this
-// CTA's shared memory, completing its bytes on `bar`
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
-                                         int c0, int c1, uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%2, %3}], [%4];\n"
-      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1),
-         "r"(bar)
-      : "memory");
-}
-
-// wgmma descriptor of a 128-byte-swizzled tile at `addr` (atoms of eight
-// 128-byte rows): `lbo` bytes between 64-element blocks along M or N (an
-// MN-major tile only), `sbo` bytes between atoms along the other dimension
-__device__ __forceinline__ uint64_t desc_sw128(uint32_t addr, uint32_t lbo,
-                                               uint32_t sbo) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
-         ((uint64_t)(sbo >> 4) << 32) | ((uint64_t)1 << 62);
-}
-
-// four values of A as four bf16, rounded to nearest even
-__device__ __forceinline__ uint2 four_bf16(const float* p) {
-  const float4 v = *reinterpret_cast<const float4*>(p);
-  return make_uint2(pack_bf16(to_bf16(v.x), to_bf16(v.y)),
-                    pack_bf16(to_bf16(v.z), to_bf16(v.w)));
-}
-__device__ __forceinline__ uint2 four_bf16(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint2*>(p);
 }
 
 // keep the accumulators in place across the asynchronous wgmma
@@ -358,7 +250,7 @@ saso_sketch_kernel(const TA* __restrict__ a, int64_t sk, int64_t sn,
         for (int it = 0; it < kFours / 128; ++it) {
           const int t = wg * kFours + lt + it * 128;
           const int kk = t / (TN / 4), j = 4 * (t % (TN / 4));
-          *reinterpret_cast<uint2*>(tile + mn_off(kk, j)) =
+          *reinterpret_cast<uint2*>(tile + mn_off<TK>(kk, j)) =
               four_bf16(staging + kk * TN + j);
         }
       } else if (amode == kTmaCols) {
@@ -615,19 +507,6 @@ saso_sketch_kernel(const TA* __restrict__ a, int64_t sk, int64_t sn,
   }
 }
 
-// out = alpha * the sum of the `splits` partial products in ws, in split
-// order (deterministic; no atomics)
-__global__ void saso_reduce_kernel(const float* __restrict__ ws,
-                                   float* __restrict__ out, int64_t count,
-                                   int splits, float alpha) {
-  for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < count;
-       i += (int64_t)gridDim.x * blockDim.x) {
-    float sum = ws[i];
-    for (int z = 1; z < splits; ++z) sum += ws[z * count + i];
-    out[i] = alpha * sum;
-  }
-}
-
 // The launch plan of K4, computed by ops/saso_sketch.py::launch_plan and
 // checked here: the compiled tile sizes, row_tiles x col_tiles tiles on
 // grid.x that cover the output, and the contraction split into `splits`
@@ -644,59 +523,6 @@ bool plan_ok(const Plan& p, int64_t d, int64_t m, int64_t n) {
          p.splits <= 65535 && p.ks >= 1 && (int64_t)p.splits * p.ks * TK >= m;
 }
 
-// cuTensorMapEncodeTiled, looked up at run time so that the library need
-// not link libcuda
-PFN_cuTensorMapEncodeTiled_v12000 encode_tiled() {
-  static PFN_cuTensorMapEncodeTiled_v12000 fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found = cudaDriverEntryPointSymbolNotFound;
-#if CUDART_VERSION >= 12050
-    cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                     cudaEnableDefault, &found);
-#else
-    cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
-                            &found);
-#endif
-    if (found == cudaDriverEntryPointSuccess) {
-      fn = reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(p);
-    }
-  }
-  return fn;
-}
-
-// The TMA map of the halves of A's (TK x TN) tiles where A's layout allows
-// one (one unit stride, the other a multiple of 16 bytes, a 16-byte-aligned
-// base): kTmaRows for row-major A, kTmaCols for column-major A; else
-// kLoadDirect and the consumers load A themselves.
-template <typename TA>
-int a_map(const void* a, int64_t sk, int64_t sn, int64_t m, int64_t n,
-          CUtensorMap* map) {
-  const int64_t es = (int64_t)sizeof(TA);
-  const bool rows = sn == 1 && (sk * es) % 16 == 0;
-  const bool cols = !rows && sk == 1 && (sn * es) % 16 == 0;
-  auto encode = encode_tiled();
-  if (!(rows || cols) || reinterpret_cast<uintptr_t>(a) % 16 != 0 ||
-      m <= 0 || m >= (1LL << 31) || n >= (1LL << 31) || encode == nullptr) {
-    return kLoadDirect;
-  }
-  const cuuint64_t dims[2] = {(cuuint64_t)(rows ? n : m),
-                              (cuuint64_t)(rows ? m : n)};
-  const cuuint64_t strides[1] = {(cuuint64_t)((rows ? sk : sn) * es)};
-  // a box is half a tile: each consumer warpgroup loads the half it
-  // converts
-  const cuuint32_t box[2] = {(cuuint32_t)(rows ? TN : TK),
-                             (cuuint32_t)(rows ? TK / 2 : TN / 2)};
-  const cuuint32_t unit[2] = {1, 1};
-  const CUresult r = encode(
-      map, sizeof(TA) == 4 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
-                           : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
-      2, const_cast<void*>(a), dims, strides, box, unit,
-      CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
-      CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? (rows ? kTmaRows : kTmaCols) : kLoadDirect;
-}
-
 template <typename TA>
 cudaError_t launch(const void* a, int64_t sk, int64_t sn, const int32_t* idx,
                    const float* sgn, int k, float* ws,
@@ -705,24 +531,18 @@ cudaError_t launch(const void* a, int64_t sk, int64_t sn, const int32_t* idx,
                    cudaStream_t stream) {
   auto kernel = k <= 8 ? saso_sketch_kernel<TA, 8> : saso_sketch_kernel<TA, 16>;
   const int smem = k <= 8 ? Rings<8>::kSmem : Rings<16>::kSmem;
-  cudaError_t e = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  cudaError_t e = prepare(kernel, smem, 1);
   if (e != cudaSuccess) return e;
   CUtensorMap map = {};
-  const int amode = a_map<TA>(a, sk, sn, m, n, &map);
+  const int amode = a_map<TA, TN, TK>(a, sk, sn, m, n, &map);
   const dim3 grid((unsigned)(p.row_tiles * p.col_tiles), 1, (unsigned)p.splits);
-  kernel<<<grid, THREADS, smem, stream>>>(
-      static_cast<const TA*>(a), sk, sn, map, amode, idx, sgn, k, p.ks,
-      p.row_tiles, p.splits == 1 ? out : ws, d, m, n,
-      p.splits == 1 ? alpha : 1.0f);
-  e = cudaGetLastError();
-  if (e != cudaSuccess || p.splits == 1) return e;
-  const int64_t count = d * n;
-  const int64_t want = (count + 255) / 256;
-  const unsigned blocks = (unsigned)(want < 132 * 16 ? want : 132 * 16);
-  saso_reduce_kernel<<<blocks, 256, 0, stream>>>(ws, out, count, p.splits,
-                                                 alpha);
-  return cudaGetLastError();
+  auto run = [&](float* dst, float scale) {
+    kernel<<<grid, THREADS, smem, stream>>>(
+        static_cast<const TA*>(a), sk, sn, map, amode, idx, sgn, k, p.ks,
+        p.row_tiles, dst, d, m, n, scale);
+    return cudaGetLastError();
+  };
+  return launch_split(run, p.splits, ws, out, d * n, alpha, stream);
 }
 
 }  // namespace
@@ -759,20 +579,6 @@ extern "C" int rbt_saso_sketch(const void* a, int a_bf16, int64_t sk,
 // the shared memory of k <= 8, clusters of one CTA): how many CTAs the
 // current device runs at once
 extern "C" int rbt_saso_max_ctas(int* count) {
-  auto kernel = saso_sketch_kernel<float, 8>;
-  cudaError_t e = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, Rings<8>::kSmem);
-  if (e != cudaSuccess) return (int)e;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(1, 1, 1);
-  cfg.blockDim = dim3(THREADS, 1, 1);
-  cfg.dynamicSmemBytes = Rings<8>::kSmem;
-  cudaLaunchAttribute attr;
-  attr.id = cudaLaunchAttributeClusterDimension;
-  attr.val.clusterDim.x = 1;
-  attr.val.clusterDim.y = 1;
-  attr.val.clusterDim.z = 1;
-  cfg.attrs = &attr;
-  cfg.numAttrs = 1;
-  return (int)cudaOccupancyMaxActiveClusters(count, (void*)kernel, &cfg);
+  return max_active_clusters(saso_sketch_kernel<float, 8>, THREADS,
+                             Rings<8>::kSmem, 1, count);
 }

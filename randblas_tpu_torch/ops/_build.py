@@ -2,10 +2,13 @@
 
 The kernels' sources are ``csrc/*.cu``: ``fused_sketch.cu`` (K1, K2, K3),
 ``saso_sketch.cu`` (K4), ``ell_spmm.cu`` (K5), ``x64_fill.cu`` (K6) and
-``saso_fill.cu`` (K7, which includes ``csrc/random123.cuh``). Each has a
-plain C interface (no PyTorch headers), so nvcc builds it in seconds. The
-sources compile in parallel, one nvcc per source, and link into one
-library:
+``saso_fill.cu`` (K7), with two shared headers: ``csrc/hopper.cuh``, the
+Hopper plumbing of K1, K2, K4 and K5 (bf16 packing, the swizzle,
+mbarriers, cp.async, TMA, the split sum, the occupancy query), and
+``csrc/random123.cuh``, the 32-bit generators of K1, K2, K3 and K7. Each
+source has a plain C interface (no PyTorch headers), so nvcc builds it in
+seconds. The sources compile in parallel, one nvcc per source, and link
+into one library:
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
          -Xcompiler -fPIC -Xptxas -v -c -o _build/<name>.o csrc/<name>.cu
@@ -39,6 +42,12 @@ _STAMP = BUILD_DIR / "librandblas_kernels.sha256"
 _ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*_ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
+
+# the launchers' codes of the generators with 32-bit words
+# (r123::kPhilox4x32 .. kThreefry2x32 of csrc/random123.cuh): K1, K2 and K3
+# take the two 4x32 generators, K7 all four
+GEN_CODES = {"philox4x32": 0, "philox2x32": 1, "threefry4x32": 2,
+             "threefry2x32": 3}
 
 # nvcc's output of this process's build (ptxas registers, shared memory and
 # spills per kernel), and its wall time in seconds; None when the library
@@ -161,6 +170,14 @@ def _bind(lib):
     lib.rbt_error_string.argtypes = [c_int]
     lib.rbt_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def seed_words(state):
+    """An RNGState's seed as the launchers take it: counter words 0-3, then
+    key words 0-3, the words a generator lacks 0 (eight uint32)."""
+    c, k = tuple(state.counter), tuple(state.key)
+    return (ctypes.c_uint32 * 8)(*c, *[0] * (4 - len(c)), *k,
+                                 *[0] * (4 - len(k)))
 
 
 def load():

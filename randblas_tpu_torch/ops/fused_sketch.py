@@ -50,6 +50,7 @@ fill bit for bit.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 from typing import NamedTuple
 
@@ -59,11 +60,12 @@ from torch.autograd.function import once_differentiable
 from .. import profiling
 from ..base import Layout, Op
 from ..rng.state import RNGState
-from . import _build
+from . import _build, _plan
 from .dense_fill import rowmajor_values
 
-_RNG_CODES = {"philox4x32": 0, "threefry4x32": 1}
-SUPPORTED_RNGS = tuple(_RNG_CODES)
+# the generators K1, K2 and K3 take (their launchers' codes are
+# _build.GEN_CODES)
+SUPPORTED_RNGS = ("philox4x32", "threefry4x32")
 _CTR = 4  # counter words of the supported generators
 
 # K1's and K2's tiles (the constants TI, TN, TK, PK of csrc/fused_sketch.cu):
@@ -75,9 +77,6 @@ PK = 2 * TK
 _PORTABLE_CLUSTER = 8   # the largest cluster every sm_90 device launches
 _MAX_CLUSTER = 16       # with the non-portable cluster attribute
 _MAX_GRID_Y_ROWS = 65535 * TI  # K1's and K2's row tiles ride grid.y
-_SPLIT_BELOW_WAVES = 8  # cut the contraction of grids of fewer rounds
-_MIN_SPLIT_STEPS = 16  # steps of a split, to amortise filling the ring
-_MAX_WORKSPACE = 1 << 28  # bytes of partial sums
 # a CTA's time in clusters of c is about 1 + _GEN_SHARE * 8 / c that of
 # one in clusters of 8 with no generation: fitted to K1 at the main shape in
 # clusters of 8 and 16 on an H100 80GB HBM3 at 700 W (PERF.md)
@@ -115,25 +114,6 @@ class LaunchPlan(NamedTuple):
                                     self.split_steps)
 
 
-def _waves(units: int, active: int, splits: int) -> float:
-    """Rounds of ``active`` clusters that ``units`` clusters take with the
-    contraction cut in ``splits``, in units of the uncut round."""
-    return -(-units * splits // active) / splits
-
-
-def _splits(units: int, active: int, steps: int, d: int, n: int) -> int:
-    """How many ranges to cut the contraction into: a grid of a few rounds
-    of clusters leaves part of the card idle in the last one (16 clusters
-    of 8 where 15 fit take two rounds), so it takes the count that fills
-    the rounds best, each range of at least _MIN_SPLIT_STEPS steps, with at
-    most _MAX_WORKSPACE bytes of partial sums."""
-    if not active or units >= _SPLIT_BELOW_WAVES * active:
-        return 1
-    most = min(steps // _MIN_SPLIT_STEPS, _MAX_WORKSPACE // max(1, 4 * d * n))
-    return min(range(1, max(1, most) + 1),
-               key=lambda s: (_waves(units, active, s), s))
-
-
 def launch_plan(d: int, m: int, n: int, shift: int = 0,
                 max_active=None) -> LaunchPlan:
     """The launch plan of a K1 (shift 0) or K2 call with d output rows, a
@@ -147,11 +127,18 @@ def launch_plan(d: int, m: int, n: int, shift: int = 0,
     their rounds, each CTA generating half as much, take less time than
     those of 8 (_GEN_SHARE). grid.x is a multiple of the cluster: CTAs past
     n compute zeros and join the cluster's barriers. The contraction splits
-    as ``_splits`` says, on panel-step boundaries."""
+    as ``_plan.splits`` says, on panel-step boundaries. Cached, as K4's
+    plan: ``max_active`` keys the cache as a sorted tuple."""
+    return _launch_plan(d, m, n, shift,
+                        tuple(sorted((max_active or {}).items())))
+
+
+@functools.lru_cache(maxsize=256)
+def _launch_plan(d, m, n, shift, max_active) -> LaunchPlan:
     tiles = -(-n // TN)
     row_tiles = -(-(d + shift) // TI)
     steps = max(1, -(-m // TK))
-    active = max_active or {}
+    active = dict(max_active)
     cluster = 1
     while cluster < tiles and cluster < _PORTABLE_CLUSTER:
         cluster *= 2
@@ -162,8 +149,8 @@ def launch_plan(d: int, m: int, n: int, shift: int = 0,
     def layout(c):  # (relative time, cluster, grid.x, splits)
         grid_x = -(-tiles // c) * c
         units = grid_x // c * row_tiles
-        splits = _splits(units, active.get(c, 0), steps, d, n)
-        rounds = (_waves(units, active[c], splits) if active.get(c)
+        splits = _plan.splits(units, active.get(c, 0), steps, d, n)
+        rounds = (_plan.waves(units, active[c], splits) if active.get(c)
                   else math.inf)  # unknown, or clusters of c do not run
         work = 1 + _GEN_SHARE * _PORTABLE_CLUSTER / c
         return rounds * work, c, grid_x, splits
@@ -177,36 +164,15 @@ def launch_plan(d: int, m: int, n: int, shift: int = 0,
                       grid_x // cluster, splits, split_steps)
 
 
-_max_active_cache = {}
-
-
 def max_active_clusters(device) -> dict:
     """Cluster size -> ``cudaOccupancyMaxActiveClusters`` of K1's launch
     shape on a CUDA device (8 and 16), queried once per device."""
-    index = torch.device(device).index
-    if index is None:
-        index = torch.cuda.current_device()
-    if index not in _max_active_cache:
-        lib = _build.load()
-        counts = {}
-        with torch.cuda.device(index):
-            for c in (_PORTABLE_CLUSTER, _MAX_CLUSTER):
-                out = ctypes.c_int(0)
-                code = lib.rbt_fused_max_clusters(c, ctypes.byref(out))
-                counts[c] = out.value if code == 0 else 0
-        _max_active_cache[index] = counts
-    return _max_active_cache[index]
+    return {c: _plan.occupancy(device, "rbt_fused_max_clusters", c)
+            for c in (_PORTABLE_CLUSTER, _MAX_CLUSTER)}
 
 
 # float32 0-dim constants stay on the CPU (passed to CUDA kernels as scalars)
 _SQRT3 = torch.tensor(math.sqrt(3.0), dtype=torch.float32)
-
-
-def _seed_words(state: RNGState):
-    """Eight uint32 words for the launcher: counter, then key, zero-padded."""
-    words = list(state.counter) + list(state.key)
-    words += [0] * (8 - len(words))
-    return (ctypes.c_uint32 * 8)(*words)
 
 
 def _ctr_stride(parent_minor: int) -> int:
@@ -215,7 +181,7 @@ def _ctr_stride(parent_minor: int) -> int:
 
 
 def _check_rng(state: RNGState) -> None:
-    if state.rng not in _RNG_CODES:
+    if state.rng not in SUPPORTED_RNGS:
         raise ValueError(f"the sketch kernels take {SUPPORTED_RNGS}, "
                          f"not {state.rng!r}")
 
@@ -357,8 +323,9 @@ def _launch(colmajor, base: RNGState, A, d, shift, ctr_stride, gaussian,
                     A.stride(0), A.stride(1),
                     None if ws is None else ws.data_ptr(), out.data_ptr(),
                     d, m, n)
-            tail = (ctr_stride, _seed_words(base), _RNG_CODES[base.rng],
-                    int(gaussian), float(alpha), plan.words(), _stream(A))
+            tail = (ctr_stride, _build.seed_words(base),
+                    _build.GEN_CODES[base.rng], int(gaussian), float(alpha),
+                    plan.words(), _stream(A))
             if colmajor:
                 code = lib.rbt_fused_sketch_T(*head, shift, *tail)
                 fused_sketch_colmajor.launches += 1
@@ -515,7 +482,7 @@ def fill_block_supported(dist, dtype, rng: str) -> bool:
     from ..dense import DenseDistName
     return (dtype == torch.float32
             and dist.family in (DenseDistName.Gaussian, DenseDistName.Uniform)
-            and rng in _RNG_CODES)
+            and rng in SUPPORTED_RNGS)
 
 
 class _FillPlan(NamedTuple):
@@ -580,9 +547,9 @@ def _fill_launch(p: _FillPlan, transform, scale, device):
         out = torch.empty(shape, dtype=torch.float32, device=device)
         code = lib.rbt_fill_block(
             out.data_ptr(), p.rows, p.cols, p.shift, p.ctr_stride, p.offset,
-            _seed_words(p.state), _RNG_CODES[p.state.rng], int(p.gaussian),
-            FILL_TRANSFORMS.index(transform), int(p.colmajor), int(scale),
-            _stream(out))
+            _build.seed_words(p.state), _build.GEN_CODES[p.state.rng],
+            int(p.gaussian), FILL_TRANSFORMS.index(transform),
+            int(p.colmajor), int(scale), _stream(out))
         fill_block.launches += 1
     _build.check(code, "fill_block_kernel launch")
     return out

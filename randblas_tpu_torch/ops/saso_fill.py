@@ -28,10 +28,6 @@ from .. import profiling
 from ..rng.state import RNGState
 from . import _build
 
-# the generators K7 runs (r123::kPhilox4x32 .. kThreefry2x32 of
-# csrc/random123.cuh): the four that rng.state names with 32-bit words
-GEN_CODES = {"philox4x32": 0, "philox2x32": 1, "threefry4x32": 2,
-             "threefry2x32": 3}
 REGISTER_LOG = 16   # the kernel's kRegisterLog: steps its register log holds
 INDEX_DTYPES = (torch.int32, torch.int64)
 _VALUE_BYTES = (1, 2, 4, 8)
@@ -46,9 +42,9 @@ def log_in_registers(vec_nnz: int) -> bool:
 def _check_args(state: RNGState, vec_nnz: int, dim_major: int,
                dim_minor: int, dtype, index_dtype) -> None:
     """Raise ValueError on what K7 does not take."""
-    if state.rng not in GEN_CODES:
-        raise ValueError(f"K7 takes the generators {tuple(GEN_CODES)}, not "
-                         f"{state.rng!r}")
+    if state.rng not in _build.GEN_CODES:
+        raise ValueError(f"K7 takes the generators "
+                         f"{tuple(_build.GEN_CODES)}, not {state.rng!r}")
     if not 1 <= vec_nnz <= dim_major:
         raise ValueError("vec_nnz must lie in [1, dim_major]")
     if dim_major >= 2 ** 31:
@@ -63,13 +59,6 @@ def _check_args(state: RNGState, vec_nnz: int, dim_major: int,
     if not dtype.is_floating_point or dtype.itemsize not in _VALUE_BYTES:
         raise ValueError(f"K7 writes +-1 in a floating type of 1, 2, 4 or "
                          f"8 bytes, not {dtype}")
-
-
-def seed_words(state: RNGState) -> tuple:
-    """The seed as the launcher takes it: counter words 0-3, then key
-    words 0-3, the words a generator lacks 0."""
-    return (*state.counter, *[0] * (4 - len(state.counter)), *state.key,
-            *[0] * (4 - len(state.key)))
 
 
 @functools.lru_cache(maxsize=None)
@@ -95,7 +84,7 @@ def saso_fill(state: RNGState, vec_nnz: int, dim_major: int, dim_minor: int,
     _check_args(state, vec_nnz, dim_major, dim_minor, dtype, index_dtype)
     plus, minus = _sign_bits(dtype)
     n = dim_minor * vec_nnz
-    words = (ctypes.c_uint32 * 8)(*seed_words(state))
+    words = _build.seed_words(state)
     with profiling.span("K7.launch"):
         lib = _build.load()
         with torch.cuda.device(device):
@@ -108,7 +97,7 @@ def saso_fill(state: RNGState, vec_nnz: int, dim_major: int, dim_minor: int,
             code = lib.rbt_saso_fill(
                 major.data_ptr(), minor.data_ptr(), vals.data_ptr(),
                 None if scratch is None else scratch.data_ptr(), dim_minor,
-                vec_nnz, dim_major, words, GEN_CODES[state.rng],
+                vec_nnz, dim_major, words, _build.GEN_CODES[state.rng],
                 int(index_dtype == torch.int64), vals.element_size(), plus,
                 minus, ctypes.c_void_p(stream))
             saso_fill.launches += 1

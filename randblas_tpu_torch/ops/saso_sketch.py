@@ -29,7 +29,7 @@ import torch
 
 from .. import profiling
 from ..base import require
-from . import _build
+from . import _build, _plan
 
 MAX_K = 16
 _LO = 128          # the JAX gate's row block: d_pad = ceil(d / 128) * 128
@@ -37,9 +37,6 @@ MAX_D_PAD = 4096
 # the kernel's tiles (the constants TI, TN, TK of csrc/saso_sketch.cu):
 # output rows, output columns and contraction depth per CTA and step
 TI, TN, TK = 256, 128, 64
-_SPLIT_BELOW_WAVES = 8  # cut the contraction of grids of fewer rounds
-_MIN_SPLIT_STEPS = 16   # steps of a split, to amortise filling the ring
-_MAX_WORKSPACE = 1 << 28  # bytes of partial sums
 
 
 def saso_sketch_supported(d: int, m: int, k: int, n: int) -> bool:
@@ -72,53 +69,29 @@ class LaunchPlan(NamedTuple):
                                     self.splits, self.split_steps)
 
 
-def _splits(tiles: int, active: int, steps: int, d: int, n: int) -> int:
-    """How many ranges to cut the contraction into: a grid of a few rounds
-    of CTAs leaves part of the card idle in the last one (64 tiles on 132
-    SMs fill half of it), so it takes the count that fills the rounds best,
-    each range of at least _MIN_SPLIT_STEPS steps, with at most
-    _MAX_WORKSPACE bytes of partial sums."""
-    if not active or tiles >= _SPLIT_BELOW_WAVES * active:
-        return 1
-    most = min(steps // _MIN_SPLIT_STEPS, _MAX_WORKSPACE // max(1, 4 * d * n))
-    return min(range(1, max(1, most) + 1),
-               key=lambda s: (-(-tiles * s // active) / s, s))
-
-
 @functools.lru_cache(maxsize=256)
 def launch_plan(d: int, m: int, n: int, max_active=None) -> LaunchPlan:
     """The launch plan of a K4 call with d output rows, a contraction of m
     and n output columns: the one place where the tiles, the grid and the
     splits are chosen. ``max_active`` is how many CTAs the card runs at
-    once (``max_active_ctas``; None: unknown, no splits). Cached: a
-    wrapper call plans once per shape."""
+    once (``max_active_ctas``; None: unknown, no splits); the contraction
+    splits as ``_plan.splits`` says. Cached: a wrapper call plans once per
+    shape."""
     row_tiles, col_tiles = -(-d // TI), -(-n // TN)
     steps = max(1, -(-m // TK))
     tiles = row_tiles * col_tiles
-    splits = _splits(tiles, max_active or 0, steps, d, n)
+    splits = _plan.splits(tiles, max_active or 0, steps, d, n)
     split_steps = -(-steps // splits)
     splits = -(-steps // split_steps)
     return LaunchPlan(TI, TN, TK, row_tiles, col_tiles, (tiles, 1, splits),
                       splits, split_steps)
 
 
-_max_active_cache = {}
-
-
 def max_active_ctas(device) -> int:
     """``cudaOccupancyMaxActiveClusters`` of K4's launch shape (clusters of
     one CTA) on a CUDA device, queried once per device: how many CTAs run
     at once."""
-    index = torch.device(device).index
-    if index is None:
-        index = torch.cuda.current_device()
-    if index not in _max_active_cache:
-        lib = _build.load()
-        with torch.cuda.device(index):
-            out = ctypes.c_int(0)
-            code = lib.rbt_saso_max_ctas(ctypes.byref(out))
-        _max_active_cache[index] = out.value if code == 0 else 0
-    return _max_active_cache[index]
+    return _plan.occupancy(device, "rbt_saso_max_ctas")
 
 
 def saso_sketch_reference(idxs_major, vals, a: torch.Tensor, d: int,

@@ -21,8 +21,8 @@ wrappers run their plain versions there, and no kernel launches).
   version (K1 and K2 launched twice, bit for bit the same), with
   ``branch_facts`` (load mode, launch plan, slots, order)
   computed from the card-scale shapes and the recorded card's occupancy.
-- ``load_mode``: the rule of ``a_map`` in ``csrc/fused_sketch.cu`` and
-  ``csrc/saso_sketch.cu`` by which K1, K2 and K4 read A.
+- ``load_mode``: the rule of ``a_map`` in ``csrc/hopper.cuh`` by which K1,
+  K2 and K4 read A.
 
 The bounds are the TPU tier's (the componentwise bound of
 ``oracle.assert_componentwise_close`` with float32's eps, and each test's
@@ -47,6 +47,7 @@ import torch
 
 import randblas_tpu_torch as rt
 from randblas_tpu_torch import skge
+from randblas_tpu_torch.ops import _build
 from randblas_tpu_torch.ops import ell_spmm as ell
 from randblas_tpu_torch.ops import fused_sketch as fs
 from randblas_tpu_torch.ops import saso_fill
@@ -1157,7 +1158,7 @@ COUNTERPART_CASES = tuple(c for cs in COUNTERPARTS.values() for c in cs)
 
 def load_mode(a: torch.Tensor) -> str:
     """How K1, K2 and K4 read A, by the rule of ``a_map``
-    (csrc/fused_sketch.cu, csrc/saso_sketch.cu): a TMA map of row-major A
+    (csrc/hopper.cuh): a TMA map of row-major A
     ("tma_rows": unit column stride, a row stride of a multiple of 16
     bytes) or of column-major A ("tma_cols": the transposed rule), each on
     a 16-byte-aligned base; anything else the kernel loads element by
@@ -1962,7 +1963,7 @@ def grid_required(max_active=None) -> dict:
     need[("K6", "fill_block64_kernel row_tail")] = {False, True}
     need[("K6", "fill_block64_T_kernel last_step")] = {
         "whole", "second blocks past", "second blocks partly past"}
-    need.update({("K7", "rng"): set(saso_fill.GEN_CODES),
+    need.update({("K7", "rng"): set(_build.GEN_CODES),
                  ("K7", "k"): {1, 8, 16},
                  ("K7", "log"): {"registers", "scratch"},
                  ("K7", "axis x orientation"): {

@@ -31,6 +31,7 @@ import pytest
 import torch
 
 import randblas_tpu_torch as rt
+from randblas_tpu_torch.ops import _plan
 from randblas_tpu_torch.ops import fused_sketch as fs
 
 H100 = {8: 15, 16: 7}
@@ -93,8 +94,8 @@ def test_splits_cover_each_step_once(d, m, n, shift, max_active):
             assert s1 % per_panel == 0 or s1 == steps
     assert np.all(hits == 1)
     if plan.splits > 1:
-        assert plan.splits * d * n * 4 <= fs._MAX_WORKSPACE
-        assert plan.split_steps >= fs._MIN_SPLIT_STEPS
+        assert plan.splits * d * n * 4 <= _plan.MAX_WORKSPACE
+        assert plan.split_steps >= _plan.MIN_SPLIT_STEPS
 
 
 @pytest.mark.parametrize("max_active", [None, H100])

@@ -17,6 +17,7 @@ CTAs an H100 80GB HBM3 runs at once, one per SM."""
 import numpy as np
 import pytest
 
+from randblas_tpu_torch.ops import _plan
 from randblas_tpu_torch.ops import saso_sketch as saso
 
 H100 = 132
@@ -64,8 +65,8 @@ def test_splits_cover_each_step_once(d, m, n, max_active):
     assert (plan.splits - 1) * plan.split_steps < steps
     assert plan.grid[2] == plan.splits
     if plan.splits > 1:
-        assert plan.splits * d * n * 4 <= saso._MAX_WORKSPACE
-        assert plan.split_steps >= saso._MIN_SPLIT_STEPS
+        assert plan.splits * d * n * 4 <= _plan.MAX_WORKSPACE
+        assert plan.split_steps >= _plan.MIN_SPLIT_STEPS
     if max_active is None:
         assert plan.splits == 1
 
